@@ -6,11 +6,25 @@ Run from the repo root on a host with one CUDA card:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc``, holds each
-kernel against its plain PyTorch version on the card, drives
-``repro_torch.solve`` (fused blocked Floyd-Warshall, all defaults) at
-N = 8192 and N = 8191, checks the result against the plain solve and against
-scipy's Dijkstra, traces one solve with ``torch.profiler``, times the kernel
-and prints one JSON line of kernel numbers.  The last line of its output is
+kernel against its plain PyTorch version on the card, and drives each path
+of ``repro_torch.solve`` with its launch counts set to 0 just before and
+read just after:
+
+* the main path (fused blocked Floyd-Warshall, all defaults; ``fw_round``)
+  at N = 8192 and N = 8191, checked against the plain solve and scipy's
+  Dijkstra;
+* ``with_pred=True`` (``fw_block_pred``, ``minplus_argmin``) at N = 8192
+  and 8191: the same distances, the plain pred solve's predecessors, a
+  valid predecessor tree, and paths whose cost is Dijkstra's;
+* ``round_mode="split"`` without and with predecessors (``fw_block``,
+  ``minplus``; ``fw_block_pred``, ``minplus_argmin``) at N = 8192, the pred
+  one against the plain pred solve, and both pred rounds against the plain
+  pred solve on the card at N = 2048 as well.
+
+It traces a solve without and one with predecessors with
+``torch.profiler``, holds every kernel against its plain version once more
+at the main path's shapes, times it there and prints
+one JSON line of kernel numbers.  The last line of its output is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero; without a CUDA device, or without the repo's ``src/``
 beside it, it exits non-zero before printing any result.
@@ -67,20 +81,36 @@ def nvidia_smi(fields: str) -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+ZERO_ONE = {"tropical": (np.inf, 0.0), "bottleneck": (-np.inf, np.inf),
+            "reliability": (0.0, 1.0), "boolean": (0.0, 1.0)}
+
+
+def draw(rng: np.random.Generator, shape, name: str, ties: bool = False,
+         density: float = 0.4) -> np.ndarray:
+    """Random matrix of ``shape`` in the semiring's domain: ~``density``
+    edges, the zero elsewhere.  ``ties`` draws from a few values, so many
+    candidates of an element are equal."""
+    if name == "reliability":
+        vals = rng.choice([0.25, 0.5, 1.0], size=shape) if ties else rng.uniform(0.05, 0.999, size=shape)
+    elif name == "boolean":
+        vals = np.ones(shape)
+    else:
+        vals = rng.integers(1, 4, size=shape) if ties else rng.uniform(1, 100, size=shape)
+    return np.where(rng.uniform(size=shape) < density, vals, ZERO_ONE[name][0]).astype(np.float32)
+
+
 def in_domain(rng: np.random.Generator, n: int, name: str) -> np.ndarray:
     """Random (n, n) matrix in the semiring's domain: ~40% edges, the zero
     elsewhere off the diagonal, the one on it."""
-    zero, one = {"tropical": (np.inf, 0.0), "bottleneck": (-np.inf, np.inf),
-                 "reliability": (0.0, 1.0), "boolean": (0.0, 1.0)}[name]
-    if name == "reliability":
-        vals = rng.uniform(0.05, 0.999, size=(n, n))
-    elif name == "boolean":
-        vals = np.ones((n, n))
-    else:
-        vals = rng.uniform(1, 100, size=(n, n))
-    out = np.where(rng.uniform(size=(n, n)) < 0.4, vals, zero).astype(np.float32)
-    np.fill_diagonal(out, one)
+    out = draw(rng, (n, n), name)
+    np.fill_diagonal(out, ZERO_ONE[name][1])
     return out
+
+
+def operand(rng: np.random.Generator, shape, name: str, ties: bool = False,
+            density: float = 0.4) -> torch.Tensor:
+    """``draw`` on the card."""
+    return torch.from_numpy(draw(rng, shape, name, ties, density)).cuda()
 
 
 def cuda_ms(fn) -> float:
@@ -90,6 +120,44 @@ def cuda_ms(fn) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end)
+
+
+def median_ms(fn, reps: int = 3) -> float:
+    """Median of ``reps`` CUDA-event timings of ``fn`` after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    return statistics.median(cuda_ms(fn) for _ in range(reps))
+
+
+def device_breakdown(label: str, run):
+    """Trace ``run`` with torch.profiler; print and return the device rows
+    (kernels, memcpy, memset) summed by name, the busy ms and the window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    events = list(prof.events())
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    check(bool(device), f"{label}: the profiler recorded no device activity")
+    window = (max(e.time_range.end for e in events)
+              - min(e.time_range.start for e in events)) / 1e3
+    busy = sum(e.time_range.end - e.time_range.start for e in device) / 1e3
+    per_kernel = {}
+    for e in device:
+        ms, count = per_kernel.get(e.name, (0.0, 0))
+        per_kernel[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3, count + 1)
+    print(f"device breakdown of {label} (torch.profiler, traced window {window:.3f} ms, "
+          f"device busy {busy:.3f} ms = {100 * busy / window:.1f}%):")
+    for name, (ms, count) in sorted(per_kernel.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {ms:10.3f} ms  x{count:<4d} {name[:110]}")
+    return per_kernel, busy, window
+
+
+def grid_count(per_kernel, kernel: str) -> int:
+    """Launches of the CUDA grid ``repro_torch::<kernel><...>`` in a trace."""
+    return sum(c for name, (_, c) in per_kernel.items() if f"repro_torch::{kernel}<" in name)
 
 
 def main() -> int:
@@ -104,9 +172,19 @@ def main() -> int:
     from scipy.sparse.csgraph import dijkstra
 
     import repro_torch
-    from repro_torch.core.semiring import pad_to_multiple, unpad
+    from repro_torch.core import (
+        init_pred,
+        path_cost,
+        reconstruct_path,
+        reconstruct_path_device,
+        validate_tree,
+    )
+    from repro_torch.core.semiring import pad_pred_to_multiple, pad_to_multiple, unpad
     from repro_torch.kernels import _build
+    from repro_torch.kernels import fw_block as fb
     from repro_torch.kernels import fw_round as fr
+    from repro_torch.kernels import minplus as mp
+    from repro_torch.kernels import ops
 
     dev = torch.device("cuda")
 
@@ -150,6 +228,70 @@ def main() -> int:
     for o in (0, 32):
         compare("N=64 B=32 with NaN", torch.from_numpy(h).to(dev), o, 32)
 
+    # 2b. The slice-2 kernels against their plain versions on the card.  bf16
+    # operands reach a kernel upcast, as ops sends them, and its value is
+    # rounded once.
+    errs = dict.fromkeys(("minplus", "minplus_argmin", "fw_block", "fw_block_pred"), 0.0)
+    pairs = {"minplus": (mp.minplus_cuda, mp.minplus_torch),
+             "minplus_argmin": (mp.minplus_argmin_cuda, mp.minplus_argmin_torch),
+             "fw_block": (fb.fw_block_cuda, fb.fw_block_torch),
+             "fw_block_pred": (fb.fw_block_pred_cuda, fb.fw_block_pred_torch)}
+
+    def compare_new(kind, label, *args, semiring="tropical"):
+        cuda_fn, plain_fn = pairs[kind]
+        up = [t.float() if t.is_floating_point() else t for t in args]
+        got = cuda_fn(*up, semiring=semiring)
+        want = plain_fn(*args, semiring=semiring)
+        torch.cuda.synchronize()
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        value = got[0].to(args[0].dtype)
+        ok = same(value, want[0]) and all(torch.equal(g, w) for g, w in zip(got[1:], want[1:]))
+        check(ok, f"{kind} {label}: kernel differs from the plain version")
+        errs[kind] = max(errs[kind], abs_err(value, want[0]))
+        print(f"{kind} {label}: equal")
+
+    rng = np.random.default_rng(1)
+    for kind in ("minplus", "minplus_argmin"):
+        for name in SEMIRING_NAMES:
+            for ties in (False, True):
+                x, y = operand(rng, (1000, 300), name, ties), operand(rng, (300, 777), name, ties)
+                a = operand(rng, (1000, 777), name, ties, density=0.2)
+                tag = f"1000x300 x 300x777 {name}{' ties' if ties else ''}"
+                compare_new(kind, tag, x, y, semiring=name)
+                compare_new(kind, tag + " accumulate", x, y, a, semiring=name)
+        x, y = operand(rng, (4, 256, 256), "tropical"), operand(rng, (4, 256, 1024), "tropical")
+        a = operand(rng, (4, 256, 1024), "tropical", density=0.2)
+        compare_new(kind, "G=4 256x256 x 256x1024 tropical", x, y)
+        compare_new(kind, "G=4 256x256 x 256x1024 tropical accumulate", x, y, a)
+        x, y = operand(rng, (1000, 300), "tropical", True), operand(rng, (300, 777), "tropical", True)
+        a = operand(rng, (1000, 777), "tropical", True, density=0.2)
+        compare_new(kind, "1000x300 x 300x777 bf16 tropical", x.bfloat16(), y.bfloat16())
+        compare_new(kind, "1000x300 x 300x777 bf16 tropical accumulate",
+                    x.bfloat16(), y.bfloat16(), a.bfloat16())
+        x[5, :] = x[17, 40] = y[9, 3] = a[0, 0] = float("nan")
+        for name in ("tropical", "bottleneck"):
+            compare_new(kind, f"1000x300 x 300x777 {name} with NaN", x, y, semiring=name)
+            compare_new(kind, f"1000x300 x 300x777 {name} with NaN accumulate", x, y, a,
+                        semiring=name)
+    for name in SEMIRING_NAMES:
+        d = torch.from_numpy(in_domain(rng, 256, name)).to(dev)[None]
+        p = init_pred(d[0], name)[None].contiguous()
+        compare_new("fw_block", f"T=1 B=256 {name}", d, semiring=name)
+        compare_new("fw_block_pred", f"T=1 B=256 {name}", d, p, semiring=name)
+    d = torch.stack([torch.from_numpy(in_domain(rng, 100, "tropical")) for _ in range(3)]).to(dev)
+    p = torch.stack([init_pred(t, "tropical") for t in d])
+    compare_new("fw_block", "T=3 B=100 tropical", d)
+    compare_new("fw_block_pred", "T=3 B=100 tropical", d, p)
+    d = torch.from_numpy(repro_torch.generate_np(rng, 256).h).to(dev)
+    p = init_pred(d)
+    compare_new("fw_block", "B=256 bf16 tropical", d.bfloat16())
+    compare_new("fw_block_pred", "B=256 bf16 tropical", d.bfloat16(), p)
+    d[2, 7], d[7, 2], d[100, 101] = -9.0, 3.0, float("nan")
+    compare_new("fw_block", "B=256 tropical, negative cycle and NaN", d)
+    compare_new("fw_block_pred", "B=256 tropical, negative cycle and NaN", d, p)
+    check(bool((torch.diagonal(fb.fw_block_pred_torch(d, p)[0]) < 0).any()),
+          "the negative-cycle tile has no negative diagonal")
+
     # 3. The main path: repro_torch.solve with all defaults.
     def plain_solve(h_dev, b=256):
         n = h_dev.shape[0]
@@ -186,42 +328,153 @@ def main() -> int:
               f"fw_round rounds {rounds}; equal to the plain solve ({plain_wall:.3f} s) "
               f"and to Dijkstra on 32 sources; finite share "
               f"{float(torch.isfinite(dist).float().mean()):.4f}")
-        results[n] = (g.h, rounds)
+        results[n] = (g.h, rounds, dist, src, dj)
+
+    # 3b. The slice-2 paths, each driven with every count set to 0 just
+    # before it and read just after.
+    def counts():
+        return {"fw_round": fr.rounds, **mp.launches, **fb.launches}
+
+    def drive(label, h, expect, **options):
+        fr.rounds = 0
+        mp.launches.update(minplus=0, minplus_argmin=0)
+        fb.launches.update(fw_block=0, fw_block_pred=0)
+        t0 = time.perf_counter()
+        res = repro_torch.solve(h, **options)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: v for k, v in counts().items() if v}
+        check(got == expect, f"{label}: launches {got}, expected {expect}")
+        check(res.dist.is_cuda and (res.pred is None or (res.pred.is_cuda and
+              res.pred.dtype == torch.int32)), f"{label}: result off the card")
+        path_launches[label] = got
+        print(f"{label}: repro_torch.solve {wall:.3f} s host clock, launches {got}")
+        return res
+
+    path_launches = {}
+
+    def plain_pred_solve(h, b, split):
+        """The pred rounds composed from the plain versions, on h's device."""
+        n = h.shape[0]
+        d = pad_to_multiple(h, b)
+        p = pad_pred_to_multiple(init_pred(h), b)
+        for t in range(d.shape[0] // b):
+            o = t * b
+            piv, ppiv = fb.fw_block_pred_torch(d[o:o + b, o:o + b], p[o:o + b, o:o + b])
+            row, prow = d[o:o + b, :], p[o:o + b, :]
+            col, pcol = d[:, o:o + b], p[:, o:o + b]
+            if split:
+                row, k = mp.minplus_argmin_torch(piv, row, row)
+                prow = ops.pred_from_kstar(k, ppiv, prow, k_offset=o, fallback=prow)
+            col2, k = mp.minplus_argmin_torch(col, piv, col)
+            pcol = ops.pred_from_kstar(k, pcol, ppiv, k_offset=o, j_offset=o, fallback=pcol)
+            if split:
+                col2[o:o + b], pcol[o:o + b] = piv, ppiv
+            d2, k = mp.minplus_argmin_torch(col2, row, d)
+            p = ops.pred_from_kstar(k, pcol, prow, k_offset=o, fallback=p)
+            d = d2
+        return unpad(d, n), unpad(p, n)
+
+    for n in (8192, 8191):
+        h_np, rounds, dist, src, dj = results[n]
+        res = drive(f"with_pred N={n}", h_np,
+                    {"fw_block_pred": rounds, "minplus_argmin": 2 * rounds}, with_pred=True)
+        check(same(res.dist, dist), f"with_pred N={n}: dist differs from the main path's")
+        t0 = time.perf_counter()
+        want_d, want_p = plain_pred_solve(torch.from_numpy(h_np).to(dev), 256, split=False)
+        torch.cuda.synchronize()
+        plain_wall = time.perf_counter() - t0
+        check(same(res.dist, want_d) and torch.equal(res.pred, want_p),
+              f"with_pred N={n}: dist or pred differs from the plain pred solve")
+        del want_d, want_p
+        t0 = time.perf_counter()
+        check(validate_tree(h_np, res.dist, res.pred), f"with_pred N={n}: invalid tree")
+        tree_s = time.perf_counter() - t0
+        targets = np.random.default_rng(2).integers(0, n, size=(len(src), 16))
+        walked = 0
+        for row, (s_, ts) in enumerate(zip(src, targets)):
+            for t_ in ts:
+                path = reconstruct_path(res.pred, int(s_), int(t_))
+                if not np.isfinite(dj[row, t_]):
+                    check(path is None, f"with_pred N={n}: a path to an unreachable node")
+                    continue
+                check(path is not None and path[0] == s_ and path[-1] == t_ and
+                      path_cost(h_np, path) == dj[row, t_],
+                      f"with_pred N={n}: path {s_}->{t_} does not cost Dijkstra's distance")
+                walked += 1
+                if walked <= 4:
+                    dpath, dlen = reconstruct_path_device(res.pred, int(s_), int(t_),
+                                                          max_len=len(path) + 2)
+                    check(int(dlen) == len(path) and dpath[:len(path)].tolist() == path,
+                          f"with_pred N={n}: device walk differs from the host walk")
+        print(f"with_pred N={n}: dist equal to the main path's; dist and pred equal to the "
+              f"plain pred solve on the card ({plain_wall:.1f} s); validate_tree holds "
+              f"({tree_s:.1f} s on the host); {walked} paths from 32 sources cost "
+              f"Dijkstra's distance")
+
+    h_np, rounds, dist = results[8192][:3]
+    for options, expect in (
+        ({"round_mode": "split"}, {"fw_block": rounds, "minplus": 3 * rounds}),
+        ({"round_mode": "split", "with_pred": True},
+         {"fw_block_pred": rounds, "minplus_argmin": 3 * rounds}),
+    ):
+        label = "split" + (" with_pred" if options.get("with_pred") else "") + " N=8192"
+        res = drive(label, h_np, expect, **options)
+        check(same(res.dist, dist), f"{label}: dist differs from the fused solve's")
+        check(res.pred is None or validate_tree(h_np, res.dist, res.pred),
+              f"{label}: invalid tree")
+        if res.pred is not None:
+            want_d, want_p = plain_pred_solve(torch.from_numpy(h_np).to(dev), 256, split=True)
+            torch.cuda.synchronize()
+            check(same(res.dist, want_d) and torch.equal(res.pred, want_p),
+                  f"{label}: dist or pred differs from the plain pred solve")
+            del want_d, want_p
+            print(f"{label}: dist and pred equal to the plain pred solve on the card")
+        print(f"{label}: dist equal to the fused solve's")
+
+    h2 = torch.from_numpy(repro_torch.generate_np(np.random.default_rng(0), 2048, rho=2.0).h).to(dev)
+    for split in (False, True):
+        res = repro_torch.solve(h2, with_pred=True, round_mode="split" if split else "fused")
+        want_d, want_p = plain_pred_solve(h2, 256, split)
+        torch.cuda.synchronize()
+        check(same(res.dist, want_d) and torch.equal(res.pred, want_p),
+              f"N=2048 {'split' if split else 'fused'} pred solve differs from the plain one")
+        print(f"N=2048 {'split' if split else 'fused'} with_pred: dist and pred equal to the "
+              f"plain pred solve on the card")
 
     # 4. The device breakdown of one solve (device rows only: kernels, memcpy, memset).
-    h_np, rounds = results[8192]
+    h_np, rounds = results[8192][:2]
     h_dev = torch.from_numpy(h_np).to(dev)
     repro_torch.solve(h_dev)
     torch.cuda.synchronize()
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     fr.rounds = 0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        repro_torch.solve(h_dev)
-        torch.cuda.synchronize()
+    per_kernel, busy, window = device_breakdown("one solve", lambda: repro_torch.solve(h_dev))
     traced_rounds = fr.rounds
-    events = list(prof.events())
-    device = [e for e in events if e.device_type == DeviceType.CUDA]
-    check(bool(device), "the profiler recorded no device activity")
-    window = (max(e.time_range.end for e in events)
-              - min(e.time_range.start for e in events)) / 1e3
-    busy = sum(e.time_range.end - e.time_range.start for e in device) / 1e3
-    per_kernel = {}
-    for e in device:
-        ms, count = per_kernel.get(e.name, (0.0, 0))
-        per_kernel[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3, count + 1)
-    print(f"device breakdown of one solve (torch.profiler, traced window {window:.3f} ms, "
-          f"device busy {busy:.3f} ms = {100 * busy / window:.1f}%):")
-    for name, (ms, count) in sorted(per_kernel.items(), key=lambda kv: -kv[1][0]):
-        print(f"  {ms:10.3f} ms  x{count:<4d} {name[:110]}")
     grids = {}
     for kernel in ("fw_closure", "fw_colpanel", "fw_update"):
-        count = sum(c for name, (_, c) in per_kernel.items() if f"repro_torch::{kernel}<" in name)
+        count = grid_count(per_kernel, kernel)
         check(count == traced_rounds,
               f"{kernel} ran {count} times in a solve of {traced_rounds} rounds")
         grids[kernel] = count
     grid_launches_per_round = sum(grids.values()) / traced_rounds
+
+    # 4b. The device breakdown of a solve with predecessors and of a split one.
+    repro_torch.solve(h_dev, with_pred=True)
+    torch.cuda.synchronize()
+    per_kernel_p, busy_p, window_p = device_breakdown(
+        "one solve with predecessors", lambda: repro_torch.solve(h_dev, with_pred=True))
+    for kernel, per_round in (("fw_block_pred", 1), ("minplus_argmin", 2)):
+        count = grid_count(per_kernel_p, kernel)
+        check(count == per_round * rounds,
+              f"{kernel} ran {count} times in a pred solve of {rounds} rounds")
+    repro_torch.solve(h_dev, round_mode="split")
+    torch.cuda.synchronize()
+    per_kernel_s, busy_s, window_s = device_breakdown(
+        "one split solve", lambda: repro_torch.solve(h_dev, round_mode="split"))
+    for kernel, per_round in (("fw_block", 1), ("minplus", 3)):
+        count = grid_count(per_kernel_s, kernel)
+        check(count == per_round * rounds,
+              f"{kernel} ran {count} times in a split solve of {rounds} rounds")
 
     # 5. Times, the bound and the kernels line.
     n, b = 8192, 256
@@ -269,7 +522,82 @@ def main() -> int:
           f"{bound_ms:.4f} ms a round by {line['bound_by']} at {clock_mhz:g} MHz "
           f"(operations {ops_ms:.4f} ms, bytes {bytes_ms:.4f} ms), plain "
           f"{line['plain_ms']:.3f} ms a round")
-    print(json.dumps({"kernels": [line]}))
+
+    # The slice-2 kernels at the main path's shapes (N = 8192, B = 256, the
+    # pivot at N/2), each against its least time: instructions a candidate
+    # (minplus: ⊗ and ⊕; a witness: ⊗, compare and two selects) over the
+    # card's FP32 issue rate, against each input read once and each output
+    # written once.
+    lane_rate = sms * FP32_LANES_PER_SM * clock_mhz * 1e6
+    o = n // 2
+    col = h_dev[:, o:o + b].contiguous()
+    row = h_dev[o:o + b, :].contiguous()
+    piv = h_dev[o:o + b, o:o + b].contiguous()
+    ppiv = init_pred(h_dev)[o:o + b, o:o + b].contiguous()
+    work = {   # kind: (args, candidates, instructions a candidate, bytes, shape)
+        "minplus": ((col, row, h_dev), n * n * b, 2, 4 * (2 * n * b + 2 * n * n),
+                    f"{n}x{b} x {b}x{n} accumulate (split round, full update)"),
+        "minplus_argmin": ((col, row, h_dev), n * n * b, 4, 4 * (2 * n * b + 3 * n * n),
+                           f"{n}x{b} x {b}x{n} accumulate (pred round, stage 3)"),
+        "fw_block": ((piv[None],), b ** 3, 2, 4 * 2 * b * b, f"T=1 B={b}"),
+        "fw_block_pred": ((piv[None], ppiv[None]), b ** 3, 4, 4 * 4 * b * b, f"T=1 B={b}"),
+    }
+    other_shapes = {
+        "minplus": {"row panel 256x256 x 256x8192": (piv, row),
+                    "column panel 8192x256 x 256x256": (col, piv)},
+        "minplus_argmin": {"stage 2 8192x256 x 256x256 accumulate": (col, piv, col)},
+    }
+    path_of = {"minplus": "split N=8192", "minplus_argmin": "with_pred N=8192",
+               "fw_block": "split N=8192", "fw_block_pred": "with_pred N=8192"}
+    solve_of = {"split N=8192": {"round_mode": "split"},
+                "with_pred N=8192": {"with_pred": True},
+                "split with_pred N=8192": {"round_mode": "split", "with_pred": True}}
+    solves = {label: median_ms(lambda o_=o_: repro_torch.solve(h_dev, **o_))
+              for label, o_ in solve_of.items()}
+    sources = {"minplus": ("minplus.cu", "minplus.py:235"),
+               "minplus_argmin": ("minplus.cu", "minplus.py:284"),
+               "fw_block": ("fw_block.cu", "fw_block.py:34"),
+               "fw_block_pred": ("fw_block.cu", "fw_block.py:67")}
+    lines = [line]
+    for kind, (args, cand, per_cand, nbytes, shape) in work.items():
+        cuda_fn, plain_fn = pairs[kind]
+        compare_new(kind, f"{shape} (main path's shape)", *args)
+        for lbl, a_ in other_shapes.get(kind, {}).items():
+            compare_new(kind, f"{lbl} (main path's shape)", *a_)
+        k_ms = median_ms(lambda: cuda_fn(*args), reps=10)
+        p_ms = median_ms(lambda: plain_fn(*args), reps=3)
+        ops_k = per_cand * cand / lane_rate * 1e3
+        bytes_k = nbytes / HBM_BYTES_PER_S * 1e3
+        entry = {
+            "name": kind,
+            "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{sources[kind][0]}",
+            "replaces": f"src/repro/kernels/{sources[kind][1]}",
+            "launches": path_launches[path_of[kind]][kind],
+            "launches_by_path": {lbl: c[kind] for lbl, c in path_launches.items() if kind in c},
+            "max_abs_err": errs[kind],
+            "ms": k_ms,
+            "plain_ms": p_ms,
+            "bound_ms": max(ops_k, bytes_k),
+            "bound_by": "operations" if ops_k >= bytes_k else "bytes",
+            "instructions_per_candidate": per_cand,
+            "bound_clock_mhz": clock_mhz,
+            "library_ms": None,
+            "shape": shape,
+            "other_shapes_ms": {lbl: median_ms(lambda a_=a_: cuda_fn(*a_), reps=10)
+                                for lbl, a_ in other_shapes.get(kind, {}).items()},
+            "solve_ms": solves[path_of[kind]],
+            "device_busy_share": (busy_p / window_p if "pred" in path_of[kind]
+                                  else busy_s / window_s),
+            "card": card,
+        }
+        lines.append(entry)
+        print(f"{kind} on {card}: {k_ms:.4f} ms at {shape} (median of 10), bound "
+              f"{entry['bound_ms']:.4f} ms by {entry['bound_by']} (operations {ops_k:.4f} ms "
+              f"at {per_cand} instructions a candidate, bytes {bytes_k:.4f} ms), plain "
+              f"{p_ms:.3f} ms; other shapes {entry['other_shapes_ms']}")
+    print(f"solve ms at N=8192 (median of 3): {json.dumps(solves)}")
+    print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

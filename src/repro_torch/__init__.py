@@ -16,12 +16,16 @@ from .core import (
     UpdateError,
     generate_np,
     get_semiring,
+    path_cost,
+    reconstruct_path,
     register_semiring,
     solve,
+    validate_tree,
 )
 
 __all__ = [
     "solve", "APSPResult", "Semiring", "SEMIRINGS", "get_semiring",
     "register_semiring", "generate_np",
+    "reconstruct_path", "path_cost", "validate_tree",
     "APSPError", "InputValidationError", "NegativeCycleError", "UpdateError",
 ]

@@ -1,5 +1,6 @@
 """Core closed-semiring APSP library of the PyTorch port (the counterpart of
-``repro.core``; this slice carries the fused blocked-FW main path)."""
+``repro.core``; so far the blocked-FW solver with every round mode and
+predecessors, and path reconstruction)."""
 
 from .apsp import (
     APSPResult,
@@ -9,18 +10,21 @@ from .apsp import (
     solve,
     validate_cost_matrix,
 )
-from .blocked_fw import blocked_fw
+from .blocked_fw import blocked_fw, closure_block
 from .errors import (
     APSPError,
     InputValidationError,
     NegativeCycleError,
     UpdateError,
 )
+from .floyd_warshall import init_pred
 from .graphgen import GraphSample, generate, generate_np, graph_stats, paper_corpus
+from .paths import path_cost, reconstruct_path, reconstruct_path_device, validate_tree
 from .semiring import (
     SEMIRINGS,
     Semiring,
     get_semiring,
+    pad_pred_to_multiple,
     register_semiring,
     semiring_eye,
 )
@@ -28,8 +32,10 @@ from .semiring import (
 __all__ = [
     "APSPResult", "METHODS", "register_method", "solve",
     "validate_cost_matrix", "check_negative_cycles", "blocked_fw",
+    "closure_block", "init_pred",
     "GraphSample", "generate", "generate_np", "graph_stats", "paper_corpus",
+    "reconstruct_path", "reconstruct_path_device", "path_cost", "validate_tree",
     "Semiring", "SEMIRINGS", "get_semiring", "register_semiring",
-    "semiring_eye",
+    "semiring_eye", "pad_pred_to_multiple",
     "APSPError", "InputValidationError", "NegativeCycleError", "UpdateError",
 ]

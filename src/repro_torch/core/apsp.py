@@ -1,9 +1,9 @@
 """APSP front end, ported from ``repro.core.apsp``.
 
 ``solve(h, method=...)`` dispatches one dense cost matrix to a registered
-solver.  This slice registers ``"blocked_fw"`` (the fused blocked
-Floyd-Warshall, the main path); the other methods and ``solve_batch`` are
-later slices (ROADMAP.md queue 1).
+solver.  The port registers ``"blocked_fw"`` (blocked Floyd-Warshall, fused
+or split rounds, with or without predecessors); the other methods and
+``solve_batch`` are later slices (ROADMAP.md queue 1).
 
 Input conventions per semiring: off-diagonal "no edge" entries are the
 semiring zero, the diagonal is the semiring one (tropical: inf / 0).
@@ -23,7 +23,7 @@ import torch
 
 from .blocked_fw import blocked_fw
 from .errors import InputValidationError, NegativeCycleError
-from .semiring import TROPICAL, Semiring, SemiringLike, get_semiring
+from .semiring import TROPICAL, Semiring, SemiringLike, default_device, get_semiring
 
 __all__ = [
     "APSPResult",
@@ -122,6 +122,10 @@ def solve(
     ``device``: where the solve runs, ``"cuda"`` when not given.  The CPU
     runs the plain PyTorch version of each kernel.
 
+    ``with_pred``: also return ``pred``, an int32 tensor on the solve's
+    device: ``pred[i, j]`` is the last node before j on a best i -> j path,
+    -1 where j is unreachable (``core.paths`` walks it).
+
     ``donate``: None (default) lets the solve overwrite its input whenever
     this call made a fresh copy of ``h`` (a host array, a dtype cast or a
     device move); ``True`` lets it overwrite the caller's tensor; ``False``
@@ -136,14 +140,12 @@ def solve(
     ``NegativeCycleError`` when the solved diagonal goes negative.
     """
     if method not in METHODS:
-        raise ValueError(f"unknown APSP method {method!r}; have {sorted(METHODS)}")
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "solve runs on CUDA by default and this host has no CUDA device; "
-                "pass device='cpu' to run the plain PyTorch version"
-            )
-        device = "cuda"
+        raise ValueError(
+            f"unknown APSP method {method!r}; have {sorted(METHODS)} (the JAX "
+            "package's squaring, classic and rkleene methods are not ported yet: "
+            "ROADMAP.md queue 1, item 6)"
+        )
+    device = default_device(device)
     sr = get_semiring(semiring)
     target = torch.float32 if dtype is None else dtype
     x = torch.as_tensor(h, dtype=target, device=device)

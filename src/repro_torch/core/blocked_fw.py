@@ -18,9 +18,17 @@ buffer: here ``donate=True`` means the caller's tensor may be overwritten
 (the CUDA kernel updates the state in place), and ``donate=False`` copies it
 first.  Nothing checks for reads of a donated tensor.
 
-This slice ports the default path only: no predecessors, the fused round,
-B = min(256, n).  The autotune cache, ``with_pred=True`` and
-``round_mode="split"`` are later slices (ROADMAP.md queue 1).
+``round_mode="split"`` keeps the legacy round of four dispatches:
+the pivot closure (``ops.fw_block``), the row panel A* ⊗ D_t*, the column
+panel D_*t ⊗ A* with the closed pivot written into its pivot rows, and the
+full accumulate D ⊕ col ⊗ row.  ``with_pred=True`` carries int32
+predecessors through the same rounds on the witness kernels
+(``ops.fw_round_pred`` fused, ``ops.minplus_pred`` split).  The rounds with
+predecessors and the split round write new tensors each round, as JAX
+does; the fused round without them updates the state in place.
+
+B = min(256, n) and the fused round unless the caller says otherwise; the
+JAX package's autotune cache is a later slice (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -29,22 +37,81 @@ from typing import Optional, Tuple
 
 import torch
 
-from .semiring import TROPICAL, SemiringLike, get_semiring, pad_to_multiple, unpad
+from .floyd_warshall import init_pred
+from .semiring import (
+    TROPICAL,
+    Semiring,
+    SemiringLike,
+    get_semiring,
+    pad_pred_to_multiple,
+    pad_to_multiple,
+    unpad,
+)
 
-__all__ = ["blocked_fw"]
+__all__ = ["blocked_fw", "closure_block"]
+
+
+def _ops():
+    from repro_torch.kernels import ops  # lazy: the kernels import core
+
+    return ops
+
+
+def closure_block(d: torch.Tensor, semiring: Semiring = TROPICAL) -> torch.Tensor:
+    """In-block FW closure (stage 1): B pivot steps on a (B, B) tile or a
+    (T, B, B) stack of tiles, one dispatch either way (``ops.fw_block``)."""
+    return _ops().fw_block(d, semiring=semiring)
+
+
+def _closure_block_pred(
+    d: torch.Tensor, p: torch.Tensor, semiring: Semiring = TROPICAL
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _ops().fw_block_pred(d, p, semiring=semiring)
 
 
 def _resolve_round(
     h: torch.Tensor, block_size: Optional[int], round_mode: Optional[str]
 ) -> Tuple[int, str]:
     """Explicit arguments win; else the compiled-in defaults (fused round,
-    B = min(256, n))."""
+    B = min(256, n)).
+
+    A predecessor solve given no mode runs the canonical fused round, as in
+    the JAX package, which pins it there against its autotune cache: fused
+    and split rounds emit different (equally valid) tie witnesses, and a
+    solve's preds must not depend on a tuned choice.  With no cache here,
+    every solve given no mode runs fused.  Distances are mode-independent."""
     n = h.shape[-1]
     block_size = 256 if block_size is None else block_size
     round_mode = "fused" if round_mode is None else round_mode
     if round_mode not in ("fused", "split"):
         raise ValueError(f"round_mode must be 'fused' or 'split', got {round_mode!r}")
     return min(int(block_size), n), round_mode
+
+
+def _split_round(d: torch.Tensor, o: int, b: int, sr: Semiring) -> torch.Tensor:
+    ops = _ops()
+    pivot = closure_block(d[o:o + b, o:o + b], sr)
+    row = ops.minplus(pivot, d[o:o + b, :], semiring=sr)         # (B, N)
+    col = ops.minplus(d[:, o:o + b], pivot, semiring=sr)         # (N, B)
+    col[o:o + b] = pivot        # col's pivot rows = the closed pivot: updates the stripes
+    return ops.minplus(col, row, d, semiring=sr)
+
+
+def _split_round_pred(
+    d: torch.Tensor, p: torch.Tensor, o: int, b: int, sr: Semiring
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    ops = _ops()
+    pivot, ppivot = _closure_block_pred(d[o:o + b, o:o + b], p[o:o + b, o:o + b], sr)
+    row, prow = d[o:o + b, :], p[o:o + b, :]
+    col, pcol = d[:, o:o + b], p[:, o:o + b]
+    row, prow = ops.minplus_pred(pivot, row, ppivot, prow, a=row, pa=prow, k_offset=o,
+                                 j_offset=0, semiring=sr)
+    col, pcol = ops.minplus_pred(col, pivot, pcol, ppivot, a=col, pa=pcol, k_offset=o,
+                                 j_offset=o, semiring=sr)
+    col[o:o + b] = pivot
+    pcol[o:o + b] = ppivot
+    return ops.minplus_pred(col, row, pcol, prow, a=d, pa=p, k_offset=o, j_offset=0,
+                            semiring=sr)
 
 
 def blocked_fw(
@@ -61,26 +128,30 @@ def blocked_fw(
     ``block_size`` is the tile edge B; the matrix is padded to a multiple
     of B with unreachable phantom nodes (semantically inert).  A bf16 ``h``
     selects the mixed-precision round (tropical only).  ``donate=True`` lets
-    the solve overwrite ``h``.  Returns ``(dist, None)``.
+    the solve overwrite ``h``.  Returns ``(dist, pred)``, ``pred`` an int32
+    tensor on ``h``'s device when ``with_pred``, else None.
     """
-    from repro_torch.kernels import ops
-
-    if with_pred:
-        raise NotImplementedError(
-            "with_pred=True is not ported yet (ROADMAP.md queue 1, item 4: "
-            "predecessors)"
-        )
+    ops = _ops()
     sr = get_semiring(semiring)
     b, round_mode = _resolve_round(h, block_size, round_mode)
-    if round_mode == "split":
-        raise NotImplementedError(
-            "round_mode='split' is not ported yet (ROADMAP.md queue 1, item 3: "
-            "the split round)"
-        )
     n = h.shape[0]
     d = pad_to_multiple(h, b, sr)
-    if d is h:
-        d = h.contiguous() if donate else h.clone(memory_format=torch.contiguous_format)
-    for t in range(d.shape[0] // b):
-        d = ops.fw_round(d, t * b, block_size=b, semiring=sr)
-    return unpad(d, n), None
+    nblk = d.shape[0] // b
+    if not with_pred:
+        if round_mode == "split":
+            for t in range(nblk):
+                d = _split_round(d, t * b, b, sr)
+            return unpad(d, n), None
+        if d is h:   # the fused round updates d in place
+            d = h.contiguous() if donate else h.clone(memory_format=torch.contiguous_format)
+        for t in range(nblk):
+            d = ops.fw_round(d, t * b, block_size=b, semiring=sr)
+        return unpad(d, n), None
+
+    p = pad_pred_to_multiple(init_pred(h, sr), b)
+    for t in range(nblk):
+        if round_mode == "fused":
+            d, p = ops.fw_round_pred(d, p, t * b, block_size=b, semiring=sr)
+        else:
+            d, p = _split_round_pred(d, p, t * b, b, sr)
+    return unpad(d, n), unpad(p, n)

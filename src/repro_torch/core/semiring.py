@@ -35,7 +35,9 @@ __all__ = [
     "get_semiring",
     "register_semiring",
     "semiring_eye",
+    "default_device",
     "pad_to_multiple",
+    "pad_pred_to_multiple",
     "unpad",
     "ceil_log2",
 ]
@@ -69,9 +71,10 @@ class Semiring:
         """Mask of "no path" entries."""
         return x == self.zero
 
-    def eye(self, n: int, dtype=torch.float32, device="cpu") -> torch.Tensor:
-        """⊗-identity matrix: ``one`` on the diagonal, ``zero`` elsewhere."""
-        out = torch.full((n, n), self.zero, dtype=dtype, device=device)
+    def eye(self, n: int, dtype=torch.float32, device=None) -> torch.Tensor:
+        """⊗-identity matrix: ``one`` on the diagonal, ``zero`` elsewhere;
+        on ``cuda`` unless ``device`` says otherwise (:func:`default_device`)."""
+        out = torch.full((n, n), self.zero, dtype=dtype, device=default_device(device))
         out.fill_diagonal_(self.one)
         return out
 
@@ -138,8 +141,22 @@ def register_semiring(sr: Semiring) -> Semiring:
     return sr
 
 
+def default_device(device=None):
+    """``device`` when given, else ``"cuda"``.  The port's entry points run
+    on the card unless the caller names another device; on a host without
+    CUDA a call that names none raises rather than fall back to the CPU."""
+    if device is not None:
+        return device
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "the port runs on CUDA by default and this host has no CUDA device; "
+            "pass device='cpu' to run the plain PyTorch version"
+        )
+    return "cuda"
+
+
 def semiring_eye(
-    n: int, semiring: SemiringLike = "tropical", dtype=torch.float32, device="cpu"
+    n: int, semiring: SemiringLike = "tropical", dtype=torch.float32, device=None
 ) -> torch.Tensor:
     return get_semiring(semiring).eye(n, dtype, device)
 
@@ -157,6 +174,21 @@ def pad_to_multiple(
         return d
     out = sr.eye(n + pad, d.dtype, d.device)
     out[:n, :n] = d
+    return out
+
+
+def pad_pred_to_multiple(p: torch.Tensor, multiple: int) -> torch.Tensor:
+    """Pad a predecessor matrix to match :func:`pad_to_multiple`: -1 (no
+    predecessor) off the diagonal of the phantom nodes, each phantom its own
+    predecessor on it.  Returns ``p`` itself when no pad is needed."""
+    n = p.shape[0]
+    pad = (-n) % multiple
+    if pad == 0:
+        return p
+    out = torch.full((n + pad, n + pad), -1, dtype=p.dtype, device=p.device)
+    out[:n, :n] = p
+    idx = torch.arange(n, n + pad, device=p.device)
+    out[idx, idx] = idx.to(p.dtype)
     return out
 
 

@@ -120,14 +120,27 @@ def ptxas_report(name: str) -> Dict[str, Dict[str, int]]:
     return out
 
 
+_TEMPLATE_ARG = re.compile(r"Li(\d+)E|Lb([01])E|(f)|(13__nv_bfloat16)")
+
+
 def _kernel_key(mangled: str) -> str:
-    """``_ZN10repro_torch9fw_updateILi0EfEEv...`` -> ``fw_update<0,float>``."""
+    """``_ZN11repro_torch9fw_updateILi0EfEEv...`` -> ``fw_update<0,float>``,
+    ``..14minplus_argminILi2ELb1EEEv...`` -> ``minplus_argmin<2,true>``."""
     m = re.search(r"repro_torch(\d+)", mangled)
     if not m:
         return mangled
     start = m.end()
     name = mangled[start:start + int(m.group(1))]
-    t = re.match(r"ILi(\d+)E(f|13__nv_bfloat16)E", mangled[start + int(m.group(1)):])
-    if not t:
+    rest = mangled[start + int(m.group(1)):]
+    if not rest.startswith("I"):
         return name
-    return f"{name}<{t.group(1)},{'float' if t.group(2) == 'f' else 'bf16'}>"
+    args, pos = [], 1
+    while pos < len(rest) and rest[pos] != "E":
+        t = _TEMPLATE_ARG.match(rest, pos)
+        if not t:
+            return name
+        num, flag, f32, bf16 = t.groups()
+        args.append(num if num is not None else ("true" if flag == "1" else "false")
+                    if flag is not None else "float" if f32 else "bf16")
+        pos = t.end()
+    return f"{name}<{','.join(args)}>"

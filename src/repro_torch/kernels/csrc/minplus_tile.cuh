@@ -14,6 +14,12 @@
 // Out-of-range rows, columns and k are staged as the semiring zero: zero ⊗
 // zero = zero for every built-in semiring, so padded k adds nothing, and
 // padded rows and columns are never stored.
+//
+// fold_tile_argmin is the witness fold (the TPU body's ``track`` flag): each
+// output element is folded by one thread in ascending k with the strict
+// Semiring::better, so ties keep the smallest k (jnp.argmin's rule) with no
+// extra work, and the element's global k index rides beside its value.
+// Padded k is skipped, so it can never be a witness.
 #pragma once
 
 #include "semiring.cuh"
@@ -31,6 +37,46 @@ struct TileShape {
   static __device__ __forceinline__ int col(int t) { return (t % (BN / TN)) * TN; }
 };
 
+// Stage k slice k0..k0+BK of x (transposed) and y into shared memory.
+template <int SR, int BM, int BN, int BK, int TM, int TN, class TX, class TY>
+__device__ __forceinline__ void stage_slice(
+    const TX* __restrict__ x, long long ldx, const TY* __restrict__ y, long long ldy,
+    int m0, int n0, int M, int N, int K, int k0, float* sx, float* sy) {
+  using S = Semiring<SR>;
+  using Shape = TileShape<BM, BN, BK, TM, TN>;
+  const int t = threadIdx.x;
+  for (int e = t; e < BM * BK; e += Shape::kThreads) {
+    const int r = e / BK, c = e % BK;
+    const int gr = m0 + r, gk = k0 + c;
+    sx[c * Shape::kXStride + r] =
+        (gr < M && gk < K) ? Storage<TX>::load(x[gr * ldx + gk]) : S::zero();
+  }
+  for (int e = t; e < BK * BN; e += Shape::kThreads) {
+    const int r = e / BN, c = e % BN;
+    const int gk = k0 + r, gc = n0 + c;
+    sy[r * BN + c] =
+        (gk < K && gc < N) ? Storage<TY>::load(y[gk * ldy + gc]) : S::zero();
+  }
+}
+
+// Row kk of the staged slice at this thread's micro-tile, as float4s.
+template <int BM, int BN, int BK, int TM, int TN>
+__device__ __forceinline__ void read_slice(const float* sx, const float* sy, int kk,
+                                           int r0, int c0, float (&a)[TM], float (&b)[TN]) {
+  using Shape = TileShape<BM, BN, BK, TM, TN>;
+  static_assert(TM % 4 == 0 && TN % 4 == 0, "micro-tiles are read as float4");
+#pragma unroll
+  for (int i = 0; i < TM; i += 4) {
+    const float4 v = *reinterpret_cast<const float4*>(&sx[kk * Shape::kXStride + r0 + i]);
+    a[i] = v.x; a[i + 1] = v.y; a[i + 2] = v.z; a[i + 3] = v.w;
+  }
+#pragma unroll
+  for (int j = 0; j < TN; j += 4) {
+    const float4 v = *reinterpret_cast<const float4*>(&sy[kk * BN + c0 + j]);
+    b[j] = v.x; b[j + 1] = v.y; b[j + 2] = v.z; b[j + 3] = v.w;
+  }
+}
+
 // x: rows m0.. of an (M, K) matrix with row stride ldx; y: a (K, N) matrix
 // with row stride ldy, columns n0..; smem holds TileShape::kSmemFloats.
 // Every thread of the CTA must call it (it synchronises the CTA).
@@ -41,45 +87,63 @@ __device__ __forceinline__ void fold_tile(
     int K, float* smem) {
   using S = Semiring<SR>;
   using Shape = TileShape<BM, BN, BK, TM, TN>;
-  static_assert(TM % 4 == 0 && TN % 4 == 0, "micro-tiles are read as float4");
   float* sx = smem;                          // [BK][kXStride], x transposed
   float* sy = smem + BK * Shape::kXStride;   // [BK][BN]
-  const int t = threadIdx.x;
-  const int r0 = Shape::row(t);
-  const int c0 = Shape::col(t);
+  const int r0 = Shape::row(threadIdx.x);
+  const int c0 = Shape::col(threadIdx.x);
 
   for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int e = t; e < BM * BK; e += Shape::kThreads) {
-      const int r = e / BK, c = e % BK;
-      const int gr = m0 + r, gk = k0 + c;
-      sx[c * Shape::kXStride + r] =
-          (gr < M && gk < K) ? Storage<TX>::load(x[gr * ldx + gk]) : S::zero();
-    }
-    for (int e = t; e < BK * BN; e += Shape::kThreads) {
-      const int r = e / BN, c = e % BN;
-      const int gk = k0 + r, gc = n0 + c;
-      sy[r * BN + c] =
-          (gk < K && gc < N) ? Storage<TY>::load(y[gk * ldy + gc]) : S::zero();
-    }
+    stage_slice<SR, BM, BN, BK, TM, TN>(x, ldx, y, ldy, m0, n0, M, N, K, k0, sx, sy);
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < BK; ++kk) {
       float a[TM], b[TN];
-#pragma unroll
-      for (int i = 0; i < TM; i += 4) {
-        const float4 v = *reinterpret_cast<const float4*>(&sx[kk * Shape::kXStride + r0 + i]);
-        a[i] = v.x; a[i + 1] = v.y; a[i + 2] = v.z; a[i + 3] = v.w;
-      }
-#pragma unroll
-      for (int j = 0; j < TN; j += 4) {
-        const float4 v = *reinterpret_cast<const float4*>(&sy[kk * BN + c0 + j]);
-        b[j] = v.x; b[j + 1] = v.y; b[j + 2] = v.z; b[j + 3] = v.w;
-      }
+      read_slice<BM, BN, BK, TM, TN>(sx, sy, kk, r0, c0, a, b);
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
         for (int j = 0; j < TN; ++j)
           acc[i][j] = S::add(acc[i][j], S::mul(a[i], b[j]));
+    }
+    __syncthreads();
+  }
+}
+
+// The witness fold: as fold_tile, plus idx[i][j], the global k (0..K) of
+// the candidate that last strictly improved acc[i][j]; untouched where none
+// did.  Same contract and shared-memory size as fold_tile.
+template <int SR, int BM, int BN, int BK, int TM, int TN, class TX, class TY>
+__device__ __forceinline__ void fold_tile_argmin(
+    float (&acc)[TM][TN], int (&idx)[TM][TN], const TX* __restrict__ x, long long ldx,
+    const TY* __restrict__ y, long long ldy, int m0, int n0, int M, int N, int K,
+    float* smem) {
+  using S = Semiring<SR>;
+  using Shape = TileShape<BM, BN, BK, TM, TN>;
+  float* sx = smem;
+  float* sy = smem + BK * Shape::kXStride;
+  const int r0 = Shape::row(threadIdx.x);
+  const int c0 = Shape::col(threadIdx.x);
+
+  for (int k0 = 0; k0 < K; k0 += BK) {
+    stage_slice<SR, BM, BN, BK, TM, TN>(x, ldx, y, ldy, m0, n0, M, N, K, k0, sx, sy);
+    __syncthreads();
+    const int kn = K - k0;
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      if (kk < kn) {
+        float a[TM], b[TN];
+        read_slice<BM, BN, BK, TM, TN>(sx, sy, kk, r0, c0, a, b);
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) {
+            const float c = S::mul(a[i], b[j]);
+            if (S::better(c, acc[i][j])) {
+              acc[i][j] = c;
+              idx[i][j] = k0 + kk;
+            }
+          }
+      }
     }
     __syncthreads();
   }

@@ -1,7 +1,7 @@
 // The four built-in closed semirings of repro_torch.core.semiring, as device
 // functors, plus the storage types the kernels take.
 //
-// Semiring codes (the wrapper in kernels/fw_round.py passes them):
+// Semiring codes (the wrappers in kernels/*.py pass them):
 //   0 tropical     ⊕ = min, ⊗ = +,   zero = +inf
 //   1 bottleneck   ⊕ = max, ⊗ = min, zero = -inf
 //   2 reliability  ⊕ = max, ⊗ = ×,   zero = 0
@@ -15,6 +15,11 @@
 // selective, so any fold order over the same candidates gives the same bits
 // as the plain version.  Build without --use_fast_math and -ftz=true: a
 // flushed subnormal would change the reliability semiring's products.
+//
+// better(c, acc) is the strict improvement of the witness folds (< for a
+// min ⊕, > for a max ⊕).  A comparison with NaN is false, so a NaN
+// candidate never improves and a NaN accumulator is never replaced: the
+// port's NaN rule for witnesses, with no extra instruction.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -40,24 +45,28 @@ template <> struct Semiring<0> {  // tropical
   static __device__ __forceinline__ float zero() { return CUDART_INF_F; }
   static __device__ __forceinline__ float add(float a, float b) { return min_nan(a, b); }
   static __device__ __forceinline__ float mul(float a, float b) { return __fadd_rn(a, b); }
+  static __device__ __forceinline__ bool better(float c, float acc) { return c < acc; }
 };
 
 template <> struct Semiring<1> {  // bottleneck
   static __device__ __forceinline__ float zero() { return -CUDART_INF_F; }
   static __device__ __forceinline__ float add(float a, float b) { return max_nan(a, b); }
   static __device__ __forceinline__ float mul(float a, float b) { return min_nan(a, b); }
+  static __device__ __forceinline__ bool better(float c, float acc) { return c > acc; }
 };
 
 template <> struct Semiring<2> {  // reliability
   static __device__ __forceinline__ float zero() { return 0.0f; }
   static __device__ __forceinline__ float add(float a, float b) { return max_nan(a, b); }
   static __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+  static __device__ __forceinline__ bool better(float c, float acc) { return c > acc; }
 };
 
 template <> struct Semiring<3> {  // boolean
   static __device__ __forceinline__ float zero() { return 0.0f; }
   static __device__ __forceinline__ float add(float a, float b) { return max_nan(a, b); }
   static __device__ __forceinline__ float mul(float a, float b) { return min_nan(a, b); }
+  static __device__ __forceinline__ bool better(float c, float acc) { return c > acc; }
 };
 
 // Storage: float32, or bf16 with float32 arithmetic.  round() is the value a

@@ -1,0 +1,118 @@
+"""Closure of a stack of B x B tiles, with and without predecessors: the
+CUDA kernels' wrappers and their plain versions.
+
+Ports ``repro.kernels.fw_block.fw_block_pallas`` and
+``fw_block_pred_pallas`` (the TPU kernels).  On a (B, B) tile or a
+(T, B, B) stack of independent tiles, B sequential pivot steps:
+
+  fw_block       D <- D ⊕ D[:, k] ⊗ D[k, :]
+  fw_block_pred  the same, and pred[i, j] <- pred[k, j] where the value
+                 strictly improves (``p`` holds global node ids)
+
+Each step reads the old row and column k, as the JAX step does.  A NaN
+candidate never improves and a NaN value is never replaced in the pred
+closure, as in the JAX oracle.
+
+* :func:`fw_block_torch` and :func:`fw_block_pred_torch` are the plain
+  versions (the oracles of ``kernels/ref.py`` in f32, rounded once to the
+  storage dtype, as ``repro.kernels.ops`` runs them): they run for CPU
+  tensors, and the tests and ``chip_smoke.py`` hold the kernels against
+  them.
+* :func:`fw_block_cuda` and :func:`fw_block_pred_cuda` launch the
+  hand-written kernels (``csrc/fw_block.cu``) on float32 CUDA tensors,
+  B <= 256.
+
+``launches`` counts the calls of each wrapper that launched its kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core.semiring import SemiringLike, get_semiring
+
+from ._codes import semiring_code
+from .ref import fw_block_pred_ref, fw_block_ref
+
+__all__ = [
+    "fw_block_torch",
+    "fw_block_pred_torch",
+    "fw_block_cuda",
+    "fw_block_pred_cuda",
+    "launches",
+    "MAX_BLOCK",
+]
+
+# Largest tile the closure kernels take (csrc/fw_closure.cuh kCloseMaxB).
+MAX_BLOCK = 256
+
+launches = {"fw_block": 0, "fw_block_pred": 0}
+
+
+def _f32(d: torch.Tensor) -> torch.Tensor:
+    return d.float() if d.dtype == torch.bfloat16 else d
+
+
+def fw_block_torch(d: torch.Tensor, *, semiring: SemiringLike = "tropical") -> torch.Tensor:
+    """The plain version: the closed tile(s), in ``d``'s dtype."""
+    return fw_block_ref(_f32(d), semiring).to(d.dtype)
+
+
+def fw_block_pred_torch(
+    d: torch.Tensor, p: torch.Tensor, *, semiring: SemiringLike = "tropical"
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version: (closed tile(s) in ``d``'s dtype, int32 preds)."""
+    z, pz = fw_block_pred_ref(_f32(d), p, semiring)
+    return z.to(d.dtype), pz
+
+
+def _launch(name: str, d, p, semiring) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    sr = get_semiring(semiring)
+    for t, dtype in ((d, torch.float32), (p, torch.int32)):
+        if t is None:
+            continue
+        if not t.is_cuda:
+            raise ValueError(f"{name} takes CUDA tensors, got one on {t.device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} takes {dtype} here, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} takes contiguous tensors")
+    if d.ndim not in (2, 3) or d.shape[-1] != d.shape[-2]:
+        raise ValueError(f"{name} takes (B, B) or (T, B, B) tiles, got {tuple(d.shape)}")
+    if p is not None and p.shape != d.shape:
+        raise ValueError(f"{name}: preds {tuple(p.shape)} differ from tiles {tuple(d.shape)}")
+    b = d.shape[-1]
+    tiles = d.shape[0] if d.ndim == 3 else 1
+    if not 1 <= b <= MAX_BLOCK:
+        raise ValueError(f"{name} takes tiles of 1 to {MAX_BLOCK} nodes, got B={b}")
+    code = semiring_code(sr, name)
+    z = torch.empty_like(d)
+    pz = None if p is None else torch.empty_like(p)
+    from . import _build
+
+    fn = _build.load("fw_block").fw_block_launch
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(d.device).cuda_stream
+    err = fn(code, int(p is not None), d.data_ptr(), None if p is None else p.data_ptr(),
+             z.data_ptr(), None if pz is None else pz.data_ptr(), tiles, b, stream)
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
+    launches[name] += 1
+    return z, pz
+
+
+def fw_block_cuda(d: torch.Tensor, *, semiring: SemiringLike = "tropical") -> torch.Tensor:
+    """Launch the CUDA closure kernel: a new tensor of closed tiles."""
+    return _launch("fw_block", d, None, semiring)[0]
+
+
+def fw_block_pred_cuda(
+    d: torch.Tensor, p: torch.Tensor, *, semiring: SemiringLike = "tropical"
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the CUDA pred closure kernel: new (tiles, int32 preds)."""
+    return _launch("fw_block_pred", d, p, semiring)

@@ -28,62 +28,32 @@ kernel's round (three grids each).
 from __future__ import annotations
 
 import ctypes
-import math
 
 import torch
 
-from repro_torch.core.semiring import (
-    BOOLEAN,
-    BOTTLENECK,
-    RELIABILITY,
-    TROPICAL,
-    Semiring,
-    SemiringLike,
-    get_semiring,
-)
+from repro_torch.core.semiring import SemiringLike, get_semiring
 
-from .ref import fw_block_ref
+from ._codes import semiring_code
+from .fw_block import MAX_BLOCK, fw_block_torch
+from .minplus import minplus_torch
 
 __all__ = ["fw_round", "fw_round_torch", "fw_round_cuda", "rounds"]
 
-# The semiring codes of csrc/semiring.cuh.
-_CODES = {TROPICAL: 0, BOTTLENECK: 1, RELIABILITY: 2, BOOLEAN: 3}
-# Largest pivot block the closure grid holds (csrc/fw_round.cu kCloseMaxB).
-MAX_BLOCK = 256
-# Elements of the (rows, k chunk, N) broadcast the plain version builds at a
-# time: a k chunk of 1 at N = 8192, the whole block at the tests' sizes.
-_FOLD_BUDGET = 1 << 24
-
 rounds = 0
-
-
-def _fold(x: torch.Tensor, y: torch.Tensor, acc, sr: Semiring) -> torch.Tensor:
-    """acc ⊕ (⊕_k x[..., :, k] ⊗ y[..., k, :]), k folded a chunk at a time
-    in ascending order; ``acc=None`` is the semiring zero."""
-    m, k = x.shape[-2:]
-    n = y.shape[-1]
-    lead = math.prod(x.shape[:-2])
-    kc = max(1, min(k, _FOLD_BUDGET // max(1, lead * m * n)))
-    for k0 in range(0, k, kc):
-        cand = sr.reduce(
-            sr.mul(x[..., :, k0:k0 + kc, None], y[..., None, k0:k0 + kc, :]), dim=-2
-        )
-        acc = cand if acc is None else sr.add(acc, cand)
-    return acc
 
 
 def fw_round_torch(
     d: torch.Tensor, o: int, *, block_size: int, semiring: SemiringLike = "tropical"
 ) -> torch.Tensor:
     """The plain version: a new tensor holding one fused round of ``d``.
-    Folds as ``fw_round_xla`` does, with bf16 rounded at the same points."""
+    Folds as ``fw_round_xla`` does, with bf16 rounded at the same points:
+    the closed pivot, col' and the output (``minplus_torch`` rounds to its
+    first operand's dtype)."""
     sr = get_semiring(semiring)
     b = block_size
-    storage = d.dtype
-    cd = torch.float32 if storage == torch.bfloat16 else storage
-    pivot = fw_block_ref(d[..., o:o + b, o:o + b].to(cd), sr).to(storage)
-    colp = _fold(d[..., :, o:o + b].to(cd), pivot.to(cd), None, sr).to(storage)
-    return _fold(colp.to(cd), d[..., o:o + b, :].to(cd), d.to(cd), sr).to(storage)
+    pivot = fw_block_torch(d[..., o:o + b, o:o + b], semiring=sr)
+    colp = minplus_torch(d[..., :, o:o + b], pivot, semiring=sr)
+    return minplus_torch(colp, d[..., o:o + b, :], d, semiring=sr)
 
 
 def fw_round_cuda(
@@ -110,11 +80,7 @@ def fw_round_cuda(
     o = int(o)
     if o % b or not 0 <= o < n:
         raise ValueError(f"pivot offset {o} is not a block of N={n}, B={b}")
-    code = _CODES.get(sr)
-    if code is None:
-        raise NotImplementedError(
-            f"the CUDA fw_round kernel knows the built-in semirings only, not {sr.name!r}"
-        )
+    code = semiring_code(sr, "fw_round")
     from . import _build
 
     fn = _build.load("fw_round").fw_round_launch

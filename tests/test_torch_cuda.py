@@ -1,5 +1,5 @@
-"""The port's CUDA fw_round kernel against its plain PyTorch version, on the
-card.  Marked ``cuda``: every test skips, with its reason, on a host without
+"""The port's CUDA kernels (fw_round, minplus, minplus_argmin, fw_block,
+fw_block_pred) against their plain PyTorch versions, on the card.  Marked ``cuda``: every test skips, with its reason, on a host without
 a CUDA device.  Run them on the GPU host with
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 
@@ -16,7 +16,10 @@ from oracle import generate
 
 from repro_torch.core import Semiring, generate_np, solve
 from repro_torch.core.semiring import TROPICAL
+from repro_torch.kernels import fw_block as fb
 from repro_torch.kernels import fw_round as fr
+from repro_torch.kernels import minplus as mp
+from repro_torch.kernels import ops
 
 pytestmark = pytest.mark.cuda
 
@@ -106,3 +109,137 @@ def test_solve_on_card_matches_cpu(cuda, n):
     got = solve(h).dist
     assert got.is_cuda and fr.rounds - before == -(-n // min(256, n))
     assert torch.equal(got.cpu(), solve(h, device="cpu").dist)
+
+
+ZERO = {"tropical": np.inf, "bottleneck": -np.inf, "reliability": 0.0, "boolean": 0.0}
+SEMIRINGS = ["tropical", "bottleneck", "reliability", "boolean"]
+
+
+def _mat(rng, shape, semiring, ties=False, density=0.6):
+    if semiring == "boolean":
+        vals = np.ones(shape)
+    elif semiring == "reliability":
+        vals = rng.choice([0.25, 0.5, 1.0], size=shape) if ties else rng.uniform(0.05, 0.999, size=shape)
+    else:
+        vals = rng.integers(1, 4, size=shape) if ties else rng.uniform(1, 100, size=shape)
+    out = np.where(rng.uniform(size=shape) < density, vals, ZERO[semiring])
+    return torch.from_numpy(out.astype(np.float32))
+
+
+def _product_pair(kind, x, y, a, semiring):
+    cuda_fn, plain_fn = ((mp.minplus_cuda, mp.minplus_torch) if kind == "minplus"
+                         else (mp.minplus_argmin_cuda, mp.minplus_argmin_torch))
+    before = mp.launches[kind]
+    got = cuda_fn(x, y, a, semiring=semiring)
+    assert mp.launches[kind] == before + 1
+    want = plain_fn(x, y, a, semiring=semiring)
+    torch.cuda.synchronize()
+    if kind == "minplus":
+        return _same(got, want)
+    return _same(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("kind", ["minplus", "minplus_argmin"])
+@pytest.mark.parametrize("semiring", SEMIRINGS)
+@pytest.mark.parametrize("acc", [False, True])
+@pytest.mark.parametrize("ties", [False, True])
+def test_minplus_kernels_match_plain(cuda, kind, semiring, acc, ties):
+    rng = np.random.default_rng(acc + 2 * ties)
+    m, k, n = 1000, 300, 777
+    x, y = _mat(rng, (m, k), semiring, ties).to(cuda), _mat(rng, (k, n), semiring, ties).to(cuda)
+    a = _mat(rng, (m, n), semiring, ties, 0.3).to(cuda) if acc else None
+    assert _product_pair(kind, x, y, a, semiring)
+
+
+@pytest.mark.parametrize("kind", ["minplus", "minplus_argmin"])
+def test_minplus_kernels_match_plain_batched_and_nan(cuda, kind):
+    rng = np.random.default_rng(7)
+    x, y = _mat(rng, (4, 130, 70), "tropical").to(cuda), _mat(rng, (4, 70, 200), "tropical").to(cuda)
+    a = _mat(rng, (4, 130, 200), "tropical", density=0.3).to(cuda)
+    assert _product_pair(kind, x, y, a, "tropical")
+    x[1, 5, :] = float("nan")
+    x[2, 7, 3] = float("nan")
+    a[3, 0, 0] = float("nan")
+    assert _product_pair(kind, x, y, a, "tropical")
+    assert _product_pair(kind, x, y, None, "bottleneck")
+
+
+@pytest.mark.parametrize("pred", [False, True])
+@pytest.mark.parametrize("semiring", SEMIRINGS)
+@pytest.mark.parametrize("b,t", [(256, 1), (100, 3), (7, 2)])
+def test_fw_block_kernels_match_plain(cuda, pred, semiring, b, t):
+    rng = np.random.default_rng(b + t)
+    d = torch.stack([torch.from_numpy(generate(rng, b, semiring)) for _ in range(t)]).to(cuda)
+    p = torch.randint(-1, 5000, d.shape, dtype=torch.int32, device=cuda)
+    if pred:
+        before = fb.launches["fw_block_pred"]
+        got = fb.fw_block_pred_cuda(d, p, semiring=semiring)
+        assert fb.launches["fw_block_pred"] == before + 1
+        want = fb.fw_block_pred_torch(d, p, semiring=semiring)
+        torch.cuda.synchronize()
+        assert _same(got[0], want[0]) and torch.equal(got[1], want[1])
+    else:
+        before = fb.launches["fw_block"]
+        got = fb.fw_block_cuda(d, semiring=semiring)
+        assert fb.launches["fw_block"] == before + 1
+        torch.cuda.synchronize()
+        assert _same(got, fb.fw_block_torch(d, semiring=semiring))
+
+
+def test_fw_block_pred_negative_cycle_and_nan(cuda):
+    h = generate_np(np.random.default_rng(2), 256).h
+    h[2, 7], h[7, 2] = -9.0, 3.0
+    h[40, 41] = np.nan
+    d = torch.from_numpy(h).to(cuda)
+    p = torch.arange(256, dtype=torch.int32, device=cuda).repeat(256, 1).t().contiguous()
+    got = fb.fw_block_pred_cuda(d, p)
+    want = fb.fw_block_pred_torch(d, p)
+    torch.cuda.synchronize()
+    assert bool((torch.diagonal(want[0]) < 0).any())
+    assert _same(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    x = torch.zeros((64, 32), device=cuda)
+    with pytest.raises(ValueError):
+        mp.minplus_cuda(x, x)
+    with pytest.raises(TypeError):
+        mp.minplus_argmin_cuda(x.bfloat16(), x.t().contiguous().bfloat16())
+    with pytest.raises(ValueError):
+        mp.minplus_cuda(x, x.t())
+    with pytest.raises(ValueError):
+        fb.fw_block_cuda(torch.zeros((300, 300), device=cuda))
+    with pytest.raises(ValueError):
+        fb.fw_block_pred_cuda(torch.zeros((8, 8), device=cuda), torch.zeros((8, 8), dtype=torch.int32))
+
+
+@pytest.mark.parametrize("options", [
+    {"with_pred": True}, {"round_mode": "split"}, {"round_mode": "split", "with_pred": True}])
+@pytest.mark.parametrize("n", [100, 384])
+def test_pred_and_split_solves_on_card_match_cpu(cuda, options, n):
+    h = generate_np(np.random.default_rng(n), n).h
+    mp.launches.update(minplus=0, minplus_argmin=0)
+    fb.launches.update(fw_block=0, fw_block_pred=0)
+    got = solve(h, **options)
+    want = solve(h, device="cpu", **options)
+    assert got.dist.is_cuda and torch.equal(got.dist.cpu(), want.dist)
+    rounds = -(-n // min(256, n))
+    if options.get("with_pred"):
+        assert got.pred.is_cuda and got.pred.dtype == torch.int32
+        assert torch.equal(got.pred.cpu(), want.pred)
+        assert fb.launches["fw_block_pred"] == rounds
+        assert mp.launches["minplus_argmin"] == (3 if options.get("round_mode") else 2) * rounds
+    else:
+        assert fb.launches["fw_block"] == rounds and mp.launches["minplus"] == 3 * rounds
+
+
+def test_ops_bf16_on_card_matches_cpu(cuda):
+    rng = np.random.default_rng(9)
+    x = _mat(rng, (300, 256), "tropical", ties=True).bfloat16()
+    y = _mat(rng, (256, 500), "tropical", ties=True).bfloat16()
+    a = _mat(rng, (300, 500), "tropical", ties=True).bfloat16()
+    got = ops.minplus_argmin(x.to(cuda), y.to(cuda), a.to(cuda))
+    want = ops.minplus_argmin(x, y, a)
+    assert got[0].dtype == torch.bfloat16
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    assert torch.equal(ops.minplus(x.to(cuda), y.to(cuda)).cpu(), ops.minplus(x, y))

@@ -3,10 +3,13 @@ import neither JAX nor anything of the JAX package ``repro``, and the port
 imports and solves on the CPU in a process where ``jax`` cannot load."""
 
 import ast
+import importlib
 import os
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -29,6 +32,26 @@ def test_port_files_exist():
     assert len(PORT_FILES) > 10 and all(p.exists() for p in PORT_FILES)
 
 
+@pytest.mark.parametrize("module", [
+    "repro_torch.core.floyd_warshall",
+    "repro_torch.core.paths",
+    "repro_torch.kernels.minplus",
+    "repro_torch.kernels.fw_block",
+])
+def test_new_modules_are_scanned_and_import(module):
+    path = ROOT / "src" / (module.replace(".", "/") + ".py")
+    assert path in PORT_FILES
+    assert not [m for m in _imported_modules(path) if _forbidden(m)]
+    importlib.import_module(module)
+
+
+def test_kernel_sources_ship_with_the_port():
+    csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+    names = {p.name for p in csrc.iterdir()}
+    assert {"fw_round.cu", "minplus.cu", "fw_block.cu", "fw_closure.cuh",
+            "minplus_tile.cuh", "semiring.cuh"} <= names
+
+
 def test_port_imports_neither_jax_nor_repro():
     bad = [
         f"{p.relative_to(ROOT)}: {m}"
@@ -44,7 +67,13 @@ def test_the_scan_catches_forbidden_imports():
     assert _forbidden("repro") and not _forbidden("repro_torch.core")
 
 
-def test_port_solves_with_jax_blocked():
+@pytest.mark.parametrize("options", [
+    "",
+    ", with_pred=True",
+    ", round_mode='split'",
+    ", round_mode='split', with_pred=True",
+])
+def test_port_solves_with_jax_blocked(options):
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -52,8 +81,10 @@ def test_port_solves_with_jax_blocked():
         "import numpy as np\n"
         "import repro_torch\n"
         "g = repro_torch.generate_np(np.random.default_rng(0), 40)\n"
-        "d = repro_torch.solve(g.h, block_size=16, device='cpu').dist\n"
+        f"r = repro_torch.solve(g.h, block_size=16, device='cpu'{options})\n"
+        "d = r.dist\n"
         "assert d.shape == (40, 40) and bool((d.diagonal() == 0).all())\n"
+        "assert r.pred is None or repro_torch.validate_tree(g.h, d, r.pred)\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -108,10 +108,13 @@ def test_solve_without_a_device_needs_cuda(monkeypatch):
         solve(_graph(8, "tropical"))
 
 
-@pytest.mark.parametrize("kw", [{"with_pred": True}, {"round_mode": "split"}])
-def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solve(_graph(16, "tropical"), device="cpu", **kw)
+@pytest.mark.parametrize("method", ["squaring", "squaring_3d", "classic", "rkleene"])
+def test_unported_options_raise(method):
+    """The JAX package's other methods are not ported yet: solve names the
+    queue that holds them.  (``with_pred`` and ``round_mode="split"`` are
+    ported: tests/test_torch_pred.py, tests/test_torch_split.py.)"""
+    with pytest.raises(ValueError, match="ROADMAP"):
+        solve(_graph(16, "tropical"), device="cpu", method=method)
 
 
 def test_unknown_method_and_round_mode_raise():
