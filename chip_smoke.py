@@ -21,9 +21,18 @@ read just after:
   one against the plain pred solve, and both pred rounds against the plain
   pred solve on the card at N = 2048 as well.
 
+It then drives the dynamic engine, ``repro_torch.DynamicAPSP``, at
+N = 8192 with and without predecessors through a stream of edge-update
+batches that takes the rank-k path (``minplus``, ``minplus_argmin``), the
+row-restricted re-close (``row_close``) and, on twin engines, the warm
+re-solve; after every update ``dist`` equals a cold solve, the pred tree is
+valid and its paths cost Dijkstra's distances, and every ``row_close``
+launch is replayed through its plain version.
+
 It traces a solve without and one with predecessors with
 ``torch.profiler``, holds every kernel against its plain version once more
-at the main path's shapes, times it there and prints
+at the main path's shapes (and ``minplus`` / ``minplus_argmin`` at the
+rank-k shapes), times it there and prints
 one JSON line of kernel numbers.  The last line of its output is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero; without a CUDA device, or without the repo's ``src/``
@@ -158,6 +167,255 @@ def device_breakdown(label: str, run):
 def grid_count(per_kernel, kernel: str) -> int:
     """Launches of the CUDA grid ``repro_torch::<kernel><...>`` in a trace."""
     return sum(c for name, (_, c) in per_kernel.items() if f"repro_torch::{kernel}<" in name)
+
+
+def tree_worsening(rng: np.random.Generator, eng, k: int):
+    """Up to k edges of ``eng``'s recorded shortest-path trees (the last hops
+    ``pred[i, j] -> j`` of sampled reachable pairs), each made 100-300
+    dearer: a worsening batch for the row-restricted re-close.  An edge is
+    taken only while the sources whose tree ends in it (``pred[:, v] == u``,
+    the rows the engine will re-close) stay at most n / 8 in all, so the
+    batch stays under the engine's ``row_threshold`` of n / 2.
+    (``generate_edge_updates`` worsens random pairs, and at 1% density
+    almost every random pair is a missing edge, so its "worsenings" are
+    inserts.)"""
+    n = eng.n
+    pairs = rng.integers(0, n, (32 * k, 2))
+    last = eng.pred[torch.from_numpy(pairs[:, 0]).cuda(),
+                    torch.from_numpy(pairs[:, 1]).cuda()].cpu().numpy()
+    rows = torch.zeros(n, dtype=torch.bool, device=eng.pred.device)
+    edges = []
+    for (i, j), p in zip(pairs, last):
+        if len(edges) == k:
+            break
+        if i == j or p < 0 or (int(p), int(j)) in edges:
+            continue
+        grown = rows | (eng.pred[:, int(j)] == int(p))
+        if int(grown.sum()) <= n // 8:
+            rows = grown
+            edges.append((int(p), int(j)))
+    check(bool(edges), "dynamic: found no tree edge to worsen")
+    u = np.array([e[0] for e in edges], np.int32)
+    v = np.array([e[1] for e in edges], np.int32)
+    h = eng.h
+    return u, v, (h[u, v] + rng.integers(100, 300, len(u))).astype(np.float32)
+
+
+def drive_dynamic(dev, card: str, lane_rate: float, n: int = 8192):
+    """Phase 6: the dynamic engine at N = ``n``.  Returns the ``row_close``
+    kernel entry, the launches of each kernel in the checked stream, and a
+    summary of update times by path."""
+    import scipy.sparse
+    from scipy.sparse.csgraph import dijkstra
+
+    import repro_torch
+    from repro_torch.core import path_cost, reconstruct_path, validate_tree
+    from repro_torch.kernels import fw_block as fb
+    from repro_torch.kernels import fw_round as fr
+    from repro_torch.kernels import minplus as mp
+    from repro_torch.kernels import row_close as rc
+
+    g = repro_torch.generate_np(np.random.default_rng(0), n, rho=2.0 * 8192 / n)
+    rng = np.random.default_rng(3)
+
+    def engines():
+        t0 = time.perf_counter()
+        made = {"pred": repro_torch.DynamicAPSP(g.h, with_pred=True),
+                "plain": repro_torch.DynamicAPSP(g.h),
+                "pred warm twin": repro_torch.DynamicAPSP(g.h, with_pred=True, row_threshold=0.0),
+                "plain warm twin": repro_torch.DynamicAPSP(g.h, row_threshold=0.0)}
+        torch.cuda.synchronize()
+        print(f"dynamic: four engines at N={n} built in {time.perf_counter() - t0:.1f} s")
+        return made
+
+    # Every row_close launch of the checked stream is kept on its exact
+    # inputs and output, and replayed through the plain version after the
+    # update.  The recorder calls the one wrapper, which counts the launch.
+    recorded = []
+    launch_row_close = rc.row_close_cuda
+
+    def recorder(d, rows, *, track=False, semiring="tropical"):
+        z, ks = launch_row_close(d, rows, track=track, semiring=semiring)
+        recorded.append((d.clone(), rows.clone(), track, semiring, z.clone(),
+                         None if ks is None else ks.clone()))
+        return z, ks
+
+    def counts():
+        return {"fw_round": fr.rounds, **mp.launches, **fb.launches, **rc.launches}
+
+    def zero_counts():
+        fr.rounds = 0
+        mp.launches.update(minplus=0, minplus_argmin=0)
+        fb.launches.update(fw_block=0, fw_block_pred=0)
+        rc.launches["row_close"] = 0
+
+    eng = engines()
+    twins_until = 2          # the twins take the first two batches only
+    batches = []
+    launches = {}
+    replayed = 0
+    err = 0.0
+    kept = {}                # one recorded launch of each kind, for the timings
+    rc.row_close_cuda = recorder
+    try:
+        for step in range(6):
+            if step in (1, 4):
+                batch = tree_worsening(rng, eng["pred"], 16)
+            elif step == 3:
+                uw, vw, ww = tree_worsening(rng, eng["pred"], 8)
+                ud, vd, wd = repro_torch.generate_edge_updates(rng, eng["pred"].h, 8)
+                batch = (np.r_[uw, ud], np.r_[vw, vd], np.r_[ww, wd])
+            else:
+                batch = repro_torch.generate_edge_updates(rng, eng["pred"].h, 16,
+                                                          worsen_frac=0.5 if step < 5 else 0.0)
+            batches.append(batch)
+            for label, e in eng.items():
+                if "twin" in label and step >= twins_until:
+                    continue
+                zero_counts()
+                info = e.update(*batch)
+                torch.cuda.synchronize()
+                for kind, c in counts().items():
+                    launches[kind] = launches.get(kind, 0) + c
+                for d, rows, track, sr, z, ks in recorded:
+                    want_z, want_k = rc.row_close_torch(d, rows, track=track, semiring=sr)
+                    check(same(z, want_z) and (ks is None or torch.equal(ks, want_k)),
+                          f"dynamic step {step} {label}: a row_close launch differs from "
+                          "the plain version on its own inputs")
+                    err = max(err, abs_err(z, want_z))
+                    kept.setdefault(track, (d, rows))
+                    if rows.numel() > kept[track][1].numel():
+                        kept[track] = (d, rows)
+                    replayed += 1
+                recorded.clear()
+                cold = repro_torch.solve(e.h).dist
+                check(torch.equal(e.dist, cold),
+                      f"dynamic step {step} {label}: dist differs from a cold solve")
+                del cold
+                note = ""
+                if e.pred is not None:
+                    check(validate_tree(e.h, e.dist, e.pred),
+                          f"dynamic step {step} {label}: invalid predecessor tree")
+                    h = e.h
+                    off = np.isfinite(h) & ~np.eye(n, dtype=bool)
+                    graph = scipy.sparse.csr_matrix((h[off], np.nonzero(off)), shape=(n, n))
+                    src = rng.choice(n, 4, replace=False)
+                    dj = dijkstra(graph, directed=True, indices=src)
+                    walked = 0
+                    for row, s_ in enumerate(src):
+                        for t_ in rng.integers(0, n, 8):
+                            path = (e.path(int(s_), int(t_), max_len=32) if walked < 2
+                                    else reconstruct_path(e.pred, int(s_), int(t_)))
+                            if not np.isfinite(dj[row, t_]):
+                                check(path is None, f"dynamic step {step}: a path to an "
+                                      "unreachable node")
+                                continue
+                            check(path is not None and path[0] == s_ and path[-1] == t_
+                                  and path_cost(h, path) == dj[row, t_],
+                                  f"dynamic step {step} {label}: path {s_}->{t_} does not "
+                                  "cost Dijkstra's distance")
+                            walked += 1
+                    note = f"; valid tree, {walked} paths cost Dijkstra's distance"
+                print(f"dynamic step {step} {label}: {json.dumps(info)}; dist equal to a "
+                      f"cold solve{note}")
+                if "twin" in label:
+                    twin_of = eng[label.replace(" warm twin", "")]
+                    check(torch.equal(e.dist, twin_of.dist),
+                          f"dynamic step {step}: {label} differs from its row-path engine")
+    finally:
+        rc.row_close_cuda = launch_row_close
+    stats = {label: e.stats for label, e in eng.items()}
+    print(f"dynamic stats: {json.dumps(stats)}")
+    total = {k: sum(st[k] for st in stats.values()) for k in ("rank_k", "row_resolve",
+                                                              "warm_resolve", "row_iters")}
+    check(total["rank_k"] >= 1 and total["row_resolve"] >= 1 and total["warm_resolve"] >= 1
+          and total["row_iters"] >= 1, f"dynamic: a path was not taken: {total}")
+    check(launches["row_close"] > 0 and launches["row_close"] == replayed,
+          f"dynamic: row_close launches {launches['row_close']}, replayed {replayed}")
+    check(launches["minplus"] > 0 and launches["minplus_argmin"] > 0,
+          f"dynamic: the rank-k kernels did not run: {launches}")
+    print(f"dynamic: launches in the checked stream {json.dumps(launches)}; every "
+          f"row_close launch ({replayed}) equal to the plain version on its inputs")
+    final = {label: (e.dist, e.pred) for label, e in eng.items()}
+    del eng
+
+    # The timed stream: fresh engines, the same batches, CUDA events around
+    # each update.
+    eng = engines()
+    by_path = {}
+    for step, batch in enumerate(batches):
+        for label, e in eng.items():
+            if "twin" in label and step >= twins_until:
+                continue
+            torch.cuda.synchronize()
+            info = {}
+            ms = cuda_ms(lambda: info.update(e.update(*batch)))
+            by_path.setdefault(f"{label}: {info['path']}", []).append(ms)
+    for label, e in eng.items():
+        check(torch.equal(e.dist, final[label][0]) and
+              (e.pred is None or torch.equal(e.pred, final[label][1])),
+              f"dynamic: the timed {label} engine differs from the checked one")
+    del eng, final
+    summary = {k: {"ms": v, "median_ms": statistics.median(v)} for k, v in by_path.items()}
+    print(f"dynamic update ms at N={n} on {card}: {json.dumps(summary)}")
+
+    # The device breakdown of the first two updates of the pred engine and
+    # its warm twin, on fresh engines (the rows of the trace name where an
+    # update's time goes; the busy share says how far the host holds the
+    # card back).
+    traced = {"pred": repro_torch.DynamicAPSP(g.h, with_pred=True),
+              "pred warm twin": repro_torch.DynamicAPSP(g.h, with_pred=True,
+                                                        row_threshold=0.0)}
+    for step in range(twins_until):
+        for label, e in traced.items():
+            info = {}
+            _, busy, window = device_breakdown(
+                f"update {step} of the {label} engine",
+                lambda: info.update(e.update(*batches[step])))
+            summary[f"traced {label} step {step}: {info['path']}"] = {
+                "device_busy_ms": busy, "window_ms": window, "busy_share": busy / window}
+    del traced
+
+    # row_close at the stream's shapes: the witness variant (pred engine)
+    # is the entry's main time.
+    check(True in kept, "dynamic: the pred engine launched no row_close")
+    entry = None
+    for track in (True, False):
+        if track not in kept:
+            continue
+        d, rows = kept[track]
+        r = rows.numel()
+        fn = lambda: rc.row_close_cuda(d, rows, track=track)
+        k_ms = median_ms(fn, reps=10)
+        p_ms = median_ms(lambda: rc.row_close_torch(d, rows, track=track), reps=1)
+        ops_k = (4 if track else 2) * r * n * n / lane_rate * 1e3
+        bytes_k = 4 * (n * n + r + r * n * (2 if track else 1)) / HBM_BYTES_PER_S * 1e3
+        shape = f"N={n} r={r}{' witness' if track else ''}"
+        print(f"row_close on {card}: {k_ms:.4f} ms at {shape} (median of 10), bound "
+              f"{max(ops_k, bytes_k):.4f} ms by {'operations' if ops_k >= bytes_k else 'bytes'} "
+              f"(operations {ops_k:.4f} ms, bytes {bytes_k:.4f} ms), plain {p_ms:.3f} ms")
+        if entry is None:
+            entry = {
+                "name": "row_close",
+                "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/row_close.cu",
+                "replaces": "src/repro/kernels/row_close.py:82",
+                "launches": launches["row_close"],
+                "max_abs_err": err,
+                "ms": k_ms,
+                "plain_ms": p_ms,
+                "bound_ms": max(ops_k, bytes_k),
+                "bound_by": "operations" if ops_k >= bytes_k else "bytes",
+                "instructions_per_candidate": 4 if track else 2,
+                "library_ms": None,
+                "shape": shape,
+                "other_shapes_ms": {},
+                "card": card,
+            }
+        else:
+            entry["other_shapes_ms"][shape] = k_ms
+            entry[f"bound_ms {shape}"] = max(ops_k, bytes_k)
+    return entry, launches, summary
 
 
 def main() -> int:
@@ -476,6 +734,11 @@ def main() -> int:
         check(count == per_round * rounds,
               f"{kernel} ran {count} times in a split solve of {rounds} rounds")
 
+    # 6 (run here, before the timings). The dynamic engine at N = 8192.
+    lane_rate = sms * FP32_LANES_PER_SM * clock_mhz * 1e6
+    row_close_entry, dynamic_launches, dynamic_ms = drive_dynamic(dev, card, lane_rate)
+    path_launches["dynamic N=8192"] = dynamic_launches
+
     # 5. Times, the bound and the kernels line.
     n, b = 8192, 256
     d = pad_to_multiple(h_dev, b).clone()
@@ -528,7 +791,6 @@ def main() -> int:
     # (minplus: ⊗ and ⊕; a witness: ⊗, compare and two selects) over the
     # card's FP32 issue rate, against each input read once and each output
     # written once.
-    lane_rate = sms * FP32_LANES_PER_SM * clock_mhz * 1e6
     o = n // 2
     col = h_dev[:, o:o + b].contiguous()
     row = h_dev[o:o + b, :].contiguous()
@@ -542,10 +804,18 @@ def main() -> int:
         "fw_block": ((piv[None],), b ** 3, 2, 4 * 2 * b * b, f"T=1 B={b}"),
         "fw_block_pred": ((piv[None], ppiv[None]), b ** 3, 4, 4 * 4 * b * b, f"T=1 B={b}"),
     }
+    # The rank-k shapes of the dynamic engine: (n, K) x (K, n) accumulate
+    # into the state, K the padded batch width.
+    rank_k = {k_: ((h_dev[:, :k_] + 7.0).contiguous(), h_dev[k_:2 * k_, :].contiguous(), h_dev)
+              for k_ in (4, 16)}
     other_shapes = {
         "minplus": {"row panel 256x256 x 256x8192": (piv, row),
-                    "column panel 8192x256 x 256x256": (col, piv)},
-        "minplus_argmin": {"stage 2 8192x256 x 256x256 accumulate": (col, piv, col)},
+                    "column panel 8192x256 x 256x256": (col, piv),
+                    **{f"rank-k {n}x{k_} x {k_}x{n} accumulate": a_
+                       for k_, a_ in rank_k.items()}},
+        "minplus_argmin": {"stage 2 8192x256 x 256x256 accumulate": (col, piv, col),
+                           **{f"rank-k {n}x{k_} x {k_}x{n} accumulate": a_
+                              for k_, a_ in rank_k.items()}},
     }
     path_of = {"minplus": "split N=8192", "minplus_argmin": "with_pred N=8192",
                "fw_block": "split N=8192", "fw_block_pred": "with_pred N=8192"}
@@ -596,7 +866,10 @@ def main() -> int:
               f"{entry['bound_ms']:.4f} ms by {entry['bound_by']} (operations {ops_k:.4f} ms "
               f"at {per_cand} instructions a candidate, bytes {bytes_k:.4f} ms), plain "
               f"{p_ms:.3f} ms; other shapes {entry['other_shapes_ms']}")
+    lines.append(row_close_entry)
     print(f"solve ms at N=8192 (median of 3): {json.dumps(solves)}")
+    print(f"dynamic update ms at N=8192 by path (medians): "
+          f"{json.dumps({k: v['median_ms'] for k, v in dynamic_ms.items() if 'median_ms' in v})}")
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,12 +8,16 @@ passes ``device="cpu"``, where each kernel's plain PyTorch version runs.
 
 from .core import (
     APSPError,
+    DynamicAPSP,
     APSPResult,
     InputValidationError,
     NegativeCycleError,
     SEMIRINGS,
     Semiring,
     UpdateError,
+    UpdateJournal,
+    domain_violations,
+    generate_edge_updates,
     generate_np,
     get_semiring,
     path_cost,
@@ -25,7 +29,8 @@ from .core import (
 
 __all__ = [
     "solve", "APSPResult", "Semiring", "SEMIRINGS", "get_semiring",
-    "register_semiring", "generate_np",
+    "register_semiring", "generate_np", "generate_edge_updates",
+    "DynamicAPSP", "UpdateJournal", "domain_violations",
     "reconstruct_path", "path_cost", "validate_tree",
     "APSPError", "InputValidationError", "NegativeCycleError", "UpdateError",
 ]

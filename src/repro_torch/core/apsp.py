@@ -32,6 +32,7 @@ __all__ = [
     "register_method",
     "validate_cost_matrix",
     "check_negative_cycles",
+    "next_pow2",
 ]
 
 
@@ -157,3 +158,12 @@ def solve(
     if validate:
         check_negative_cycles(dist, sr)
     return APSPResult(dist=dist, pred=pred, method=method)
+
+
+def next_pow2(x: int, floor: int = 1) -> int:
+    """Smallest power-of-two >= x, with a floor — the shared bucketing rule
+    (update-batch widths and affected-row lists in ``core.dynamic``)."""
+    e = floor
+    while e < x:
+        e *= 2
+    return e

@@ -13,6 +13,9 @@ Two backends:
   packages, which is how the tests and ``chip_smoke.py`` feed them one input.
 * :func:`generate` draws from a ``torch.Generator`` on any device.  Its seed
   contract is its own: it never reproduces the JAX generator's graphs.
+
+:func:`generate_edge_updates` is a copy of the JAX package's numpy update
+stream, so one seed gives both dynamic engines the same updates.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ __all__ = [
     "GraphSample",
     "generate",
     "generate_np",
+    "generate_edge_updates",
     "paper_corpus",
     "graph_stats",
 ]
@@ -101,6 +105,44 @@ def generate_np(
         rho=rho,
         alpha=alpha,
     )
+
+
+def generate_edge_updates(
+    rng: np.random.Generator,
+    h: np.ndarray,
+    k: int,
+    *,
+    worsen_frac: float = 0.0,
+    alpha: int = 100,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """k random tropical edge updates ``(u, v, w)`` against cost matrix h,
+    identical to ``repro.core.graphgen.generate_edge_updates``.
+
+    By default every update is guaranteed not-worsening — lower an existing
+    edge (integer-valued, floor 1) or insert a new one with cost in
+    [1, alpha) — the load shape the dynamic engine's exact rank-k path
+    covers.  ``worsen_frac`` > 0 additionally worsens that fraction of the
+    batch (cost + [100, 300)), exercising the bounded re-solve paths.
+    Never emits self-loops.
+    """
+    n = h.shape[0]
+    u = rng.integers(0, n, k).astype(np.int32)
+    v = ((u + rng.integers(1, n, k)) % n).astype(np.int32)
+    old = h[u, v]
+    w = np.where(
+        np.isfinite(old),
+        np.maximum(1.0, np.floor(old) - rng.integers(1, 20, k)),
+        rng.integers(1, alpha, k),
+    ).astype(np.float32)
+    if worsen_frac > 0.0:
+        worsen = rng.uniform(size=k) < worsen_frac
+        w = np.where(
+            worsen,
+            np.where(np.isfinite(old), old, 1.0)
+            + rng.integers(100, 300, k).astype(np.float32),
+            w,
+        ).astype(np.float32)
+    return u, v, w
 
 
 def paper_corpus(

@@ -20,11 +20,25 @@
 // Semiring::better, so ties keep the smallest k (jnp.argmin's rule) with no
 // extra work, and the element's global k index rides beside its value.
 // Padded k is skipped, so it can never be a witness.
+//
+// Row i of the tile's x operand is row xrows(m0 + i) of x: ContiguousRows
+// (the default) reads rows m0.. as they lie, GatheredRows reads the rows a
+// list names (row_close.cu gathers the affected rows of D this way, in the
+// kernel).  The default compiles to the same index arithmetic as before.
 #pragma once
 
 #include "semiring.cuh"
 
 namespace repro_torch {
+
+struct ContiguousRows {
+  __device__ __forceinline__ long long operator()(int r) const { return r; }
+};
+
+struct GatheredRows {
+  const int* rows;  // r row ids, each in [0, M of the source)
+  __device__ __forceinline__ long long operator()(int r) const { return rows[r]; }
+};
 
 template <int BM, int BN, int BK, int TM, int TN>
 struct TileShape {
@@ -38,10 +52,10 @@ struct TileShape {
 };
 
 // Stage k slice k0..k0+BK of x (transposed) and y into shared memory.
-template <int SR, int BM, int BN, int BK, int TM, int TN, class TX, class TY>
+template <int SR, int BM, int BN, int BK, int TM, int TN, class TX, class TY, class XRows>
 __device__ __forceinline__ void stage_slice(
     const TX* __restrict__ x, long long ldx, const TY* __restrict__ y, long long ldy,
-    int m0, int n0, int M, int N, int K, int k0, float* sx, float* sy) {
+    int m0, int n0, int M, int N, int K, int k0, float* sx, float* sy, XRows xrows) {
   using S = Semiring<SR>;
   using Shape = TileShape<BM, BN, BK, TM, TN>;
   const int t = threadIdx.x;
@@ -49,7 +63,7 @@ __device__ __forceinline__ void stage_slice(
     const int r = e / BK, c = e % BK;
     const int gr = m0 + r, gk = k0 + c;
     sx[c * Shape::kXStride + r] =
-        (gr < M && gk < K) ? Storage<TX>::load(x[gr * ldx + gk]) : S::zero();
+        (gr < M && gk < K) ? Storage<TX>::load(x[xrows(gr) * ldx + gk]) : S::zero();
   }
   for (int e = t; e < BK * BN; e += Shape::kThreads) {
     const int r = e / BN, c = e % BN;
@@ -77,14 +91,16 @@ __device__ __forceinline__ void read_slice(const float* sx, const float* sy, int
   }
 }
 
-// x: rows m0.. of an (M, K) matrix with row stride ldx; y: a (K, N) matrix
-// with row stride ldy, columns n0..; smem holds TileShape::kSmemFloats.
-// Every thread of the CTA must call it (it synchronises the CTA).
-template <int SR, int BM, int BN, int BK, int TM, int TN, class TX, class TY>
+// x: rows m0.. of an (M, K) matrix with row stride ldx (through xrows); y: a
+// (K, N) matrix with row stride ldy, columns n0..; smem holds
+// TileShape::kSmemFloats.  Every thread of the CTA must call it (it
+// synchronises the CTA).
+template <int SR, int BM, int BN, int BK, int TM, int TN, class TX, class TY,
+          class XRows = ContiguousRows>
 __device__ __forceinline__ void fold_tile(
     float (&acc)[TM][TN], const TX* __restrict__ x, long long ldx,
     const TY* __restrict__ y, long long ldy, int m0, int n0, int M, int N,
-    int K, float* smem) {
+    int K, float* smem, XRows xrows = XRows()) {
   using S = Semiring<SR>;
   using Shape = TileShape<BM, BN, BK, TM, TN>;
   float* sx = smem;                          // [BK][kXStride], x transposed
@@ -93,7 +109,7 @@ __device__ __forceinline__ void fold_tile(
   const int c0 = Shape::col(threadIdx.x);
 
   for (int k0 = 0; k0 < K; k0 += BK) {
-    stage_slice<SR, BM, BN, BK, TM, TN>(x, ldx, y, ldy, m0, n0, M, N, K, k0, sx, sy);
+    stage_slice<SR, BM, BN, BK, TM, TN>(x, ldx, y, ldy, m0, n0, M, N, K, k0, sx, sy, xrows);
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < BK; ++kk) {
@@ -112,11 +128,12 @@ __device__ __forceinline__ void fold_tile(
 // The witness fold: as fold_tile, plus idx[i][j], the global k (0..K) of
 // the candidate that last strictly improved acc[i][j]; untouched where none
 // did.  Same contract and shared-memory size as fold_tile.
-template <int SR, int BM, int BN, int BK, int TM, int TN, class TX, class TY>
+template <int SR, int BM, int BN, int BK, int TM, int TN, class TX, class TY,
+          class XRows = ContiguousRows>
 __device__ __forceinline__ void fold_tile_argmin(
     float (&acc)[TM][TN], int (&idx)[TM][TN], const TX* __restrict__ x, long long ldx,
     const TY* __restrict__ y, long long ldy, int m0, int n0, int M, int N, int K,
-    float* smem) {
+    float* smem, XRows xrows = XRows()) {
   using S = Semiring<SR>;
   using Shape = TileShape<BM, BN, BK, TM, TN>;
   float* sx = smem;
@@ -125,7 +142,7 @@ __device__ __forceinline__ void fold_tile_argmin(
   const int c0 = Shape::col(threadIdx.x);
 
   for (int k0 = 0; k0 < K; k0 += BK) {
-    stage_slice<SR, BM, BN, BK, TM, TN>(x, ldx, y, ldy, m0, n0, M, N, K, k0, sx, sy);
+    stage_slice<SR, BM, BN, BK, TM, TN>(x, ldx, y, ldy, m0, n0, M, N, K, k0, sx, sy, xrows);
     __syncthreads();
     const int kn = K - k0;
 #pragma unroll

@@ -5,11 +5,12 @@ The backend follows the tensor: a CUDA tensor runs the hand-written kernel
 and a CPU tensor runs the plain PyTorch version.  There is no other way to
 choose, so a CUDA tensor never falls back to the plain version.
 
-Ported so far: ``minplus``, ``minplus_argmin``, ``pred_from_kstar``,
-``minplus_pred``, ``fw_block``, ``fw_block_pred``, ``fw_round`` and
-``fw_round_pred``.  ``rank_k_update`` and ``row_restricted_close`` follow
-with the dynamic engine (ROADMAP.md).  The JAX file's autotune consult has
-no counterpart yet: every kernel runs its compiled-in tiles.
+Every entry point of the JAX file is ported: ``minplus``,
+``minplus_argmin``, ``pred_from_kstar``, ``minplus_pred``,
+``rank_k_update`` and ``row_restricted_close`` (the dynamic engine's two
+passes), ``fw_block``, ``fw_block_pred``, ``fw_round`` and
+``fw_round_pred``.  The JAX file's autotune consult has no counterpart
+yet: every kernel runs its compiled-in tiles.
 
 bf16 operands select the mixed mode, as in the JAX file: each entry point
 upcasts to f32, computes and rounds the value once to the first operand's
@@ -25,6 +26,7 @@ import torch
 from repro_torch.core.semiring import Semiring, SemiringLike, get_semiring
 
 from . import fw_round as _fw_round
+from . import row_close as _row_close
 from .fw_block import fw_block_cuda, fw_block_pred_cuda, fw_block_pred_torch, fw_block_torch
 from .minplus import minplus_argmin_cuda, minplus_argmin_torch, minplus_cuda, minplus_torch
 
@@ -33,6 +35,8 @@ __all__ = [
     "minplus_argmin",
     "minplus_pred",
     "pred_from_kstar",
+    "rank_k_update",
+    "row_restricted_close",
     "fw_block",
     "fw_block_pred",
     "fw_round",
@@ -168,6 +172,80 @@ def minplus_pred(
     z, kstar = minplus_argmin(x, y, a, semiring=semiring)
     pz = pred_from_kstar(kstar, px, py, k_offset=k_offset, j_offset=j_offset, fallback=pa)
     return z, pz
+
+
+def rank_k_update(
+    dist: torch.Tensor,
+    u: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    pred: Optional[torch.Tensor] = None,
+    semiring: SemiringLike = "tropical",
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One fused rank-k edge-relaxation pass over a solved state, as new
+    tensors: ``dist ⊕ (dist[:, U] ⊗ W ⊗ dist[V, :])`` for the k edges
+    ``(u_i, v_i, w_i)``, one (n, k) x (k, n) accumulate on :func:`minplus`.
+
+    With ``pred`` the pass runs on :func:`minplus_argmin` and b's new
+    predecessor is ``pred[v_{k*}, b]``, or ``u_{k*}`` itself where b is
+    ``v_{k*}`` (the empty tail); entries that kept their value (k* = -1)
+    keep their predecessor.  ``pred_from_kstar`` does not apply: the
+    contraction indexes edges, not nodes.  (n, n) state only.
+
+    bf16 state forms x in f32 and rounds only the result, as the JAX pass
+    does under ``jit`` (XLA drops x's round trip through bf16; the JAX
+    function called eagerly rounds x, see ROADMAP.md §3).
+    """
+    sr = get_semiring(semiring)
+    cd = torch.float32 if _check_mixed(sr, dist) else dist.dtype
+    u, v = u.long(), v.long()
+    x = sr.mul(dist[:, u].to(cd), w[None, :].to(cd))   # (n, k): col i = d[:, u_i] ⊗ w_i
+    y = dist[v, :]                                     # (k, n)
+    if pred is None:
+        return minplus(x, y, dist, semiring=sr).to(dist.dtype), None
+    z, kstar = minplus_argmin(x, y, dist, semiring=sr)
+    z = z.to(dist.dtype)
+    ks = kstar.clamp(min=0).long()
+    cols = torch.arange(dist.shape[-1], device=dist.device)[None, :]
+    p_via = torch.gather(pred[v, :], 0, ks)      # pred[v_{k*}, b]
+    pz = torch.where(v[ks] == cols, u[ks].to(pred.dtype), p_via)
+    return z, torch.where(kstar < 0, pred, pz)
+
+
+def row_restricted_close(
+    dist: torch.Tensor,
+    rows: torch.Tensor,
+    *,
+    pred: Optional[torch.Tensor] = None,
+    semiring: SemiringLike = "tropical",
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One row-restricted relaxation pass: ``dist[R, :] ⊕= dist[R, :] ⊗ dist``.
+
+    ``rows`` holds the affected source rows R (int32, repeats allowed: a
+    repeated row computes the same panel row, so the write-back does not
+    depend on its order).  The panel runs as the ``row_close`` kernel on a
+    CUDA tensor and as its plain version on a CPU tensor; bf16 state is
+    upcast and the panel rounded once.  With ``pred`` the witness decides
+    the panel's predecessors by :func:`pred_from_kstar` (the contraction
+    indexes nodes), the old ones where nothing improved.
+
+    Returns new full (dist, pred) tensors, as the JAX pass does: clones of
+    the inputs with the panel written back (``index_copy_``) after the
+    kernel has read the whole state.  (n, n) only.
+    """
+    sr = get_semiring(semiring)
+    _check_mixed(sr, dist)
+    rows = rows.to(device=dist.device, dtype=torch.int32).contiguous()
+    fn = _row_close.row_close_cuda if backend(dist) == "cuda" else _row_close.row_close_torch
+    z, kstar = fn(*_f32(dist), rows, track=pred is not None, semiring=sr)
+    idx = rows.long()
+    out = dist.clone().index_copy_(0, idx, z.to(dist.dtype))
+    if pred is None:
+        return out, None
+    ppanel = pred.index_select(0, idx)
+    pz = pred_from_kstar(kstar, ppanel, pred, fallback=ppanel)
+    return out, pred.clone().index_copy_(0, idx, pz)
 
 
 def fw_block(d: torch.Tensor, *, semiring: SemiringLike = "tropical") -> torch.Tensor:

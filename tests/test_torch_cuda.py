@@ -1,5 +1,6 @@
 """The port's CUDA kernels (fw_round, minplus, minplus_argmin, fw_block,
-fw_block_pred) against their plain PyTorch versions, on the card.  Marked ``cuda``: every test skips, with its reason, on a host without
+fw_block_pred, row_close) against their plain PyTorch versions, and the
+dynamic engine on the card against the same engine on the CPU.  Marked ``cuda``: every test skips, with its reason, on a host without
 a CUDA device.  Run them on the GPU host with
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 
@@ -14,12 +15,13 @@ import torch
 
 from oracle import generate
 
-from repro_torch.core import Semiring, generate_np, solve
+from repro_torch.core import DynamicAPSP, Semiring, generate_edge_updates, generate_np, init_pred, solve
 from repro_torch.core.semiring import TROPICAL
 from repro_torch.kernels import fw_block as fb
 from repro_torch.kernels import fw_round as fr
 from repro_torch.kernels import minplus as mp
 from repro_torch.kernels import ops
+from repro_torch.kernels import row_close as rc
 
 pytestmark = pytest.mark.cuda
 
@@ -243,3 +245,90 @@ def test_ops_bf16_on_card_matches_cpu(cuda):
     assert got[0].dtype == torch.bfloat16
     assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
     assert torch.equal(ops.minplus(x.to(cuda), y.to(cuda)).cpu(), ops.minplus(x, y))
+
+
+def _row_close_pair(d, rows, semiring, track):
+    before = rc.launches["row_close"]
+    got = rc.row_close_cuda(d, rows, track=track, semiring=semiring)
+    assert rc.launches["row_close"] == before + 1
+    want = rc.row_close_torch(d, rows, track=track, semiring=semiring)
+    torch.cuda.synchronize()
+    return _same(got[0], want[0]) and (not track or torch.equal(got[1], want[1]))
+
+
+@pytest.mark.parametrize("semiring", SEMIRINGS)
+@pytest.mark.parametrize("track", [False, True])
+@pytest.mark.parametrize("n,r", [(40, 6), (300, 130), (1000, 4)])
+def test_row_close_kernel_matches_plain(cuda, semiring, track, n, r):
+    rng = np.random.default_rng(n + r)
+    d = torch.from_numpy(generate(rng, n, semiring)).to(cuda)
+    rows = torch.from_numpy(rng.integers(0, n, r).astype(np.int32)).to(cuda)
+    rows[-1] = rows[0]                       # a repeated row id
+    assert _row_close_pair(d, rows, semiring, track)
+
+
+@pytest.mark.parametrize("track", [False, True])
+def test_row_close_kernel_ties_and_nan(cuda, track):
+    rng = np.random.default_rng(11)
+    d = _mat(rng, (257, 257), "tropical", ties=True).to(cuda)
+    rows = torch.tensor([0, 5, 5, 256, 100], dtype=torch.int32, device=cuda)
+    assert _row_close_pair(d, rows, "tropical", track)
+    d[5, 3] = d[40, 7] = float("nan")
+    assert _row_close_pair(d, rows, "tropical", track)
+
+
+def test_row_close_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    d = torch.zeros((64, 64), device=cuda)
+    rows = torch.tensor([0, 3], dtype=torch.int32, device=cuda)
+    with pytest.raises(IndexError):
+        rc.row_close_cuda(d, torch.tensor([0, 64], dtype=torch.int32, device=cuda))
+    with pytest.raises(IndexError):
+        rc.row_close_cuda(d, torch.tensor([-1], dtype=torch.int32, device=cuda))
+    with pytest.raises(TypeError):
+        rc.row_close_cuda(d, rows.long())
+    with pytest.raises(TypeError):
+        rc.row_close_cuda(d.bfloat16(), rows)
+    with pytest.raises(ValueError):
+        rc.row_close_cuda(d[:, :32], rows)
+    with pytest.raises(ValueError):
+        rc.row_close_cuda(d, rows.cpu())
+
+
+@pytest.mark.parametrize("with_pred", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_row_restricted_close_on_card_matches_cpu(cuda, with_pred, dtype):
+    n = 300
+    h = generate_np(np.random.default_rng(5), n, rho=10.0).h
+    d = torch.from_numpy(h).to(dtype)             # unsolved, so the pass moves
+    p = init_pred(d) if with_pred else None
+    rows = torch.tensor([3, 7, 7, 200, 299, 3], dtype=torch.int32)
+    want = ops.row_restricted_close(d, rows, pred=p)
+    got = ops.row_restricted_close(d.to(cuda), rows.to(cuda),
+                                   pred=None if p is None else p.to(cuda))
+    assert not torch.equal(want[0], d)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert not with_pred or torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.parametrize("with_pred", [False, True])
+@pytest.mark.parametrize("row_threshold", [0.5, 0.0])
+def test_dynamic_stream_on_card_matches_cpu(cuda, with_pred, row_threshold):
+    rng = np.random.default_rng(21)
+    h = generate_np(rng, 300, rho=40.0).h        # dense: most drawn pairs are edges
+    kw = dict(with_pred=with_pred, resolve_threshold=1.0, row_threshold=row_threshold)
+    card, host = DynamicAPSP(h, **kw), DynamicAPSP(h, device="cpu", **kw)
+    assert card.dist.is_cuda and card.device.type == "cuda"
+    rc.launches["row_close"] = 0
+    mp.launches.update(minplus=0, minplus_argmin=0)
+    for wf in (0.0, 0.5, 1.0, 0.5):
+        batch = generate_edge_updates(rng, host.h, 16, worsen_frac=wf)
+        assert card.update(*batch) == host.update(*batch)
+        assert torch.equal(card.dist.cpu(), host.dist)
+        assert not with_pred or torch.equal(card.pred.cpu(), host.pred)
+    assert card.stats == host.stats and card.stats["rank_k"] >= 1
+    if row_threshold:
+        assert card.stats["row_iters"] >= 1 and rc.launches["row_close"] == card.stats["row_iters"]
+    else:
+        assert card.stats["warm_resolve"] >= 1 and rc.launches["row_close"] == 0
+    assert mp.launches["minplus_argmin" if with_pred else "minplus"] > 0
+

@@ -37,6 +37,8 @@ def test_port_files_exist():
     "repro_torch.core.paths",
     "repro_torch.kernels.minplus",
     "repro_torch.kernels.fw_block",
+    "repro_torch.kernels.row_close",
+    "repro_torch.core.dynamic",
 ])
 def test_new_modules_are_scanned_and_import(module):
     path = ROOT / "src" / (module.replace(".", "/") + ".py")
@@ -48,7 +50,7 @@ def test_new_modules_are_scanned_and_import(module):
 def test_kernel_sources_ship_with_the_port():
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
     names = {p.name for p in csrc.iterdir()}
-    assert {"fw_round.cu", "minplus.cu", "fw_block.cu", "fw_closure.cuh",
+    assert {"fw_round.cu", "minplus.cu", "fw_block.cu", "row_close.cu", "fw_closure.cuh",
             "minplus_tile.cuh", "semiring.cuh"} <= names
 
 
@@ -93,3 +95,30 @@ def test_port_solves_with_jax_blocked(options):
         timeout=120,
     )
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_port_dynamic_engine_without_jax():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import numpy as np\n"
+        "import repro_torch\n"
+        "rng = np.random.default_rng(0)\n"
+        "g = repro_torch.generate_np(rng, 40, rho=30.0)\n"
+        "eng = repro_torch.DynamicAPSP(g.h, with_pred=True, block_size=16, device='cpu',\n"
+        "                              resolve_threshold=1.0)\n"
+        "for wf in (0.0, 1.0):\n"
+        "    eng.update(*repro_torch.generate_edge_updates(rng, eng.h, 6, worsen_frac=wf))\n"
+        "ref = repro_torch.solve(eng.h, block_size=16, device='cpu').dist\n"
+        "assert bool((eng.dist == ref).all()) and eng.stats['row_resolve'] == 1\n"
+        "assert repro_torch.validate_tree(eng.h, eng.dist, eng.pred)\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", code], env=env, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
