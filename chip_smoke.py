@@ -33,16 +33,30 @@ It traces a solve without and one with predecessors with
 ``torch.profiler``, holds every kernel against its plain version once more
 at the main path's shapes (and ``minplus`` / ``minplus_argmin`` at the
 rank-k shapes), times it there and prints
-one JSON line of kernel numbers.  The last line of its output is
-``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
-exits non-zero; without a CUDA device, or without the repo's ``src/``
-beside it, it exits non-zero before printing any result.
+one JSON line of kernel numbers: ``fw_round`` with its three grids' ms a
+round, and the three cluster closures (``fw_closure``, ``fw_block``,
+``fw_block_pred``) with their ms a step and the cluster size that their
+launches on each path recorded on the card (checked against the plan).
+The last line of its output is ``{"ok": true, "device": {...}}``.  Any failed check raises,
+so the script exits non-zero; without a CUDA device, or without the repo's
+``src/`` beside it, it exits non-zero before printing any result.
+
+``python3 chip_smoke.py --times ROOT`` only times, as phase 4 does
+(``timings``): ``fw_round`` a round and a grid, ``fw_block`` and
+``fw_block_pred`` a tile (a wrapper call, and the kernel's device time in
+a traced solve), and the four solve paths at N = 8192, for the package
+under ``ROOT/src`` (this tree, or another commit unpacked with ``git
+archive``), and prints them as one JSON line.
+Run it on two trees in turns, in one run on one card, to compare them.
 """
 
 from __future__ import annotations
 
+import ctypes
 import json
 import math
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -58,6 +72,16 @@ SEMIRING_NAMES = ("tropical", "bottleneck", "reliability", "boolean")
 # lanes per SM (each issues one ⊗ or one ⊕ a cycle) and the HBM3 rate.
 FP32_LANES_PER_SM = 128
 HBM_BYTES_PER_S = 3.35e12
+# Tile sizes that exercise the cluster closure's layout (8 CTAs a tile):
+# B < 8 (CTAs that own no rows), B not a multiple of 8, one row a CTA, and
+# full width.
+CLOSURE_B = (1, 5, 8, 9, 31, 32, 33, 100, 255, 256)
+SOLVE_PATHS = {"main N=8192": {}, "with_pred N=8192": {"with_pred": True},
+               "split N=8192": {"round_mode": "split"},
+               "split with_pred N=8192": {"round_mode": "split", "with_pred": True}}
+# The paths whose traced grids the kernels line reads (fw_round's grids,
+# fw_block_pred, fw_block).
+TRACED_PATHS = ("main N=8192", "with_pred N=8192", "split N=8192")
 
 
 class SmokeFailure(RuntimeError):
@@ -167,6 +191,138 @@ def device_breakdown(label: str, run):
 def grid_count(per_kernel, kernel: str) -> int:
     """Launches of the CUDA grid ``repro_torch::<kernel><...>`` in a trace."""
     return sum(c for name, (_, c) in per_kernel.items() if f"repro_torch::{kernel}<" in name)
+
+
+def grid_ms(per_kernel, kernel: str) -> float:
+    """Device ms a launch of the CUDA grid ``repro_torch::<kernel><...>`` in a trace."""
+    rows = [(ms, c) for name, (ms, c) in per_kernel.items() if f"repro_torch::{kernel}<" in name]
+    return sum(ms for ms, _ in rows) / max(1, sum(c for _, c in rows))
+
+
+SASS_FUNC = re.compile(r"Function : (\S+)")
+SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
+
+
+def sass_loops(build, name: str, kernel: str, op: str = "FADD"):
+    """The loops of one kernel in the SASS of ``csrc/<name>.cu``'s library
+    (``cuobjdump -sass``; ``build`` is ``repro_torch.kernels._build``), one
+    for each backward branch, hottest first: by the count of ``op``
+    instructions in the body, then innermost first.  ``kernel`` is a
+    ``ptxas_report`` key such as ``fw_update<0,float>``.  Each loop gives
+    its address range, its length in instructions, its ``op`` count and a
+    histogram of its opcodes (with modifiers)."""
+    lib, _ = build.paths(name)
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    body, current = [], None
+    for line in text.splitlines():
+        m = SASS_FUNC.search(line)
+        if m:
+            current = build.kernel_key(m.group(1))
+            continue
+        if current == kernel:
+            m = SASS_LINE.search(line)
+            if m:
+                body.append((int(m.group(1), 16), m.group(3), m.group(4)))
+    check(bool(body), f"no SASS for {kernel} in {lib}")
+    loops = []
+    for i, (addr, opcode, args) in enumerate(body):
+        t = re.search(r"0x([0-9a-f]+)", args) if opcode.startswith("BRA") else None
+        if t is None or int(t.group(1), 16) >= addr:
+            continue
+        start = next(j for j, b in enumerate(body) if b[0] >= int(t.group(1), 16))
+        ops = [b[1] for b in body[start:i + 1]]
+        hist = {}
+        for o in ops:
+            hist[o] = hist.get(o, 0) + 1
+        loops.append({"start": body[start][0], "end": addr, "instructions": len(ops),
+                      op: sum(o.split(".")[0] == op for o in ops),
+                      "histogram": dict(sorted(hist.items(), key=lambda kv: -kv[1]))})
+    check(bool(loops), f"{kernel} has no loop")
+    return sorted(loops, key=lambda lp: (-lp[op], lp["instructions"]))
+
+
+def clusters_seen(build):
+    """The cluster size, in CTAs, that each closure's latest launch ran on,
+    as the kernel read it from ``%cluster_nctarank`` and recorded it on the
+    card (``cluster_ctas_seen`` in ``csrc/fw_closure.cuh``); reading sets
+    the records back to 0, and 0 means no launch since the last read."""
+    torch.cuda.synchronize()
+    fb_read = build.load("fw_block").fw_block_cluster_ctas
+    fb_read.argtypes = [ctypes.c_int]
+    seen = {"fw_closure": build.load("fw_round").fw_round_cluster_ctas(),
+            "fw_block": fb_read(0), "fw_block_pred": fb_read(1)}
+    check(all(v >= 0 for v in seen.values()), f"reading the closures' cluster sizes failed: {seen}")
+    return seen
+
+
+def timings(repro_torch, h: torch.Tensor, label: str = ""):
+    """What ``main()`` and ``--times`` both measure of the package imported
+    as ``repro_torch`` on the (N, N) graph ``h`` on the card, B = 256:
+    ``fw_round_cuda`` a round (every round of three passes, CUDA events), a
+    ``torch.profiler`` trace of one warm solve of each path that the
+    kernels line reads (``TRACED_PATHS``, ``device_breakdown``) and each
+    path's median solve ms.  It uses only the wrappers and ``solve``, whose interface every
+    tree of the port shares."""
+    from repro_torch.core.semiring import pad_to_multiple
+    from repro_torch.kernels import fw_round as fr
+
+    n, b = h.shape[0], 256
+    d = pad_to_multiple(h, b).clone()
+    round_ms = []
+    for _ in range(3):
+        d.copy_(h)
+        for t in range(n // b):
+            round_ms.append(cuda_ms(lambda: fr.fw_round_cuda(d, t * b, block_size=b)))
+    traces = {}
+    for path in TRACED_PATHS:
+        options = SOLVE_PATHS[path]
+        repro_torch.solve(h, **options)
+        torch.cuda.synchronize()
+        traces[path] = device_breakdown(f"one solve, {path}{label}",
+                                        lambda: repro_torch.solve(h, **options))
+    solve_ms = {path: median_ms(lambda o_=o_: repro_torch.solve(h, **o_))
+                for path, o_ in SOLVE_PATHS.items()}
+    return {"round_ms": round_ms, "traces": traces, "solve_ms": solve_ms}
+
+
+def times(root: Path) -> int:
+    """``--times ROOT``: the kernel and solve times of the package under
+    ``ROOT/src`` at N = 8192, B = 256 (``timings``, and ``fw_block`` /
+    ``fw_block_pred`` a wrapper call on the pivot tile at N/2), as one JSON
+    line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(root.resolve() / "src"))
+    import repro_torch
+    from repro_torch.core import init_pred
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import fw_block as fb
+
+    card = nvidia_smi("name,power.limit")
+    _build.build(_build.sources())
+    n, b = 8192, 256
+    h = torch.from_numpy(repro_torch.generate_np(np.random.default_rng(0), n, rho=2.0).h).cuda()
+    got = timings(repro_torch, h, f" ({root})")
+    main_rows, busy, window = got["traces"]["main N=8192"]
+    o = n // 2
+    piv = h[o:o + b, o:o + b].contiguous()[None]
+    ppiv = init_pred(h)[o:o + b, o:o + b].contiguous()[None]
+    print(json.dumps({
+        "root": str(root), "card": card, "package": repro_torch.__file__,
+        "fw_round_ms": statistics.median(got["round_ms"]),
+        "grid_ms": {k: grid_ms(main_rows, k) for k in ("fw_closure", "fw_colpanel", "fw_update")},
+        "device_busy_share": busy / window,
+        "tile_ms": {"fw_block": median_ms(lambda: fb.fw_block_cuda(piv), reps=10),
+                    "fw_block_pred": median_ms(lambda: fb.fw_block_pred_cuda(piv, ppiv), reps=10)},
+        "tile_device_ms": {
+            "fw_block": grid_ms(got["traces"]["split N=8192"][0], "fw_block"),
+            "fw_block_pred": grid_ms(got["traces"]["with_pred N=8192"][0], "fw_block_pred")},
+        "solve_ms": got["solve_ms"],
+    }))
+    return 0
 
 
 def tree_worsening(rng: np.random.Generator, eng, k: int):
@@ -458,6 +614,19 @@ def main() -> int:
     print(f"kernel build {time.perf_counter() - t0:.1f} s into {_build.BUILD_DIR}")
     for name in _build.sources():
         print(f"ptxas {name}.cu: {json.dumps(_build.ptxas_report(name), sort_keys=True)}")
+    # The folds' hottest loops in the SASS: instructions a candidate (one FADD
+    # a tropical candidate), the premise of the operations bound below, and
+    # what the loop around it (a k slice: copies, barrier) adds.
+    for src_, k in (("fw_round", "fw_update<0,float>"), ("minplus", "minplus<0,true>")):
+        loops = sass_loops(_build, src_, k)
+        hot = loops[0]
+        around = [lp for lp in loops if lp["start"] <= hot["start"] and lp["end"] >= hot["end"]
+                  and lp is not hot]
+        extra = (f"; the loop around it {min(lp['instructions'] for lp in around)} instructions"
+                 if around else "")
+        print(f"sass {k}: hottest loop {hot['instructions']} instructions, {hot['FADD']} FADD "
+              f"= {hot['instructions'] / hot['FADD']:.3f} instructions a candidate{extra}; "
+              f"{json.dumps(hot['histogram'])}")
 
     # 2. Kernel against the plain version on the card.
     print("tolerance: exact (torch.equal, NaN in the same places)")
@@ -485,6 +654,20 @@ def main() -> int:
     h[3, 40] = h[40, 50] = np.nan
     for o in (0, 32):
         compare("N=64 B=32 with NaN", torch.from_numpy(h).to(dev), o, 32)
+    # The cluster closure's tile classes, a G = 3 round and bf16 among them,
+    # and N that is not a multiple of 4 (the scratches' pitch).
+    for b in CLOSURE_B:
+        compare(f"N={2 * b} B={b} tropical", torch.from_numpy(in_domain(rng, 2 * b, "tropical")).to(dev),
+                b, b)
+    for b in (9, 100, 256):
+        hs = np.stack([in_domain(rng, 2 * b, "bottleneck") for _ in range(3)])
+        compare(f"G=3 N={2 * b} B={b} bottleneck", torch.from_numpy(hs).to(dev), b, b, "bottleneck")
+        d = torch.from_numpy(in_domain(rng, 2 * b, "tropical")).to(dev).to(torch.bfloat16)
+        compare(f"N={2 * b} B={b} bf16 tropical", d, 0, b)
+    for n_, b in ((7, 7), (19, 19), (100, 50)):
+        d = torch.from_numpy(in_domain(rng, n_, "tropical")).to(dev)
+        for o in range(0, n_, b):
+            compare(f"N={n_} B={b} tropical", d, o, b)
 
     # 2b. The slice-2 kernels against their plain versions on the card.  bf16
     # operands reach a kernel upcast, as ops sends them, and its value is
@@ -549,6 +732,20 @@ def main() -> int:
     compare_new("fw_block_pred", "B=256 tropical, negative cycle and NaN", d, p)
     check(bool((torch.diagonal(fb.fw_block_pred_torch(d, p)[0]) < 0).any()),
           "the negative-cycle tile has no negative diagonal")
+    for b in CLOSURE_B:
+        for t_, name in ((1, "tropical"), (3, "reliability")):
+            d = torch.stack([torch.from_numpy(in_domain(rng, b, name)) for _ in range(t_)]).to(dev)
+            p = torch.stack([init_pred(x, name) for x in d])
+            compare_new("fw_block", f"T={t_} B={b} {name}", d, semiring=name)
+            compare_new("fw_block_pred", f"T={t_} B={b} {name}", d, p, semiring=name)
+    for b in (9, 100, 255):
+        d = torch.from_numpy(repro_torch.generate_np(rng, b, rho=30.0).h).to(dev)
+        p = init_pred(d)
+        d[2, 7], d[7, 2], d[b - 2, b - 1] = -9.0, 3.0, float("nan")
+        compare_new("fw_block", f"B={b} tropical, negative cycle and NaN", d)
+        compare_new("fw_block_pred", f"B={b} tropical, negative cycle and NaN", d, p)
+        check(bool((torch.diagonal(fb.fw_block_pred_torch(d, p)[0]) < 0).any()),
+              f"the B={b} negative-cycle tile has no negative diagonal")
 
     # 3. The main path: repro_torch.solve with all defaults.
     def plain_solve(h_dev, b=256):
@@ -559,16 +756,23 @@ def main() -> int:
         return unpad(d, n)
 
     results = {}
+    path_clusters = {}
     for n in (8192, 8191):
         g = repro_torch.generate_np(np.random.default_rng(0), n, rho=2.0)
+        clusters_seen(_build)
         fr.rounds = 0
         t0 = time.perf_counter()
         dist = repro_torch.solve(g.h).dist
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         rounds = fr.rounds
+        seen = clusters_seen(_build)
         expect = math.ceil(n / min(256, n))
         check(rounds == expect, f"N={n}: {rounds} fw_round rounds, expected {expect}")
+        want = {"fw_closure": fb.closure_plan(min(256, n)).cluster, "fw_block": 0,
+                "fw_block_pred": 0}
+        check(seen == want, f"N={n}: the closures ran on clusters of {seen}, expected {want}")
+        path_clusters[f"main N={n}"] = seen
         check(dist.is_cuda and dist.shape == (n, n), f"N={n}: result {dist.device} {dist.shape}")
         t0 = time.perf_counter()
         ref = plain_solve(torch.from_numpy(g.h).to(dev))
@@ -583,7 +787,8 @@ def main() -> int:
         rows = dist[torch.from_numpy(src).to(dev)].cpu().numpy().astype(np.float64)
         check(np.array_equal(rows, dj), f"N={n}: rows differ from scipy Dijkstra")
         print(f"main path N={n} rho=2.0: repro_torch.solve {wall:.3f} s host clock, "
-              f"fw_round rounds {rounds}; equal to the plain solve ({plain_wall:.3f} s) "
+              f"fw_round rounds {rounds}, fw_closure on clusters of {seen['fw_closure']} "
+              f"CTAs (read from the card); equal to the plain solve ({plain_wall:.3f} s) "
               f"and to Dijkstra on 32 sources; finite share "
               f"{float(torch.isfinite(dist).float().mean()):.4f}")
         results[n] = (g.h, rounds, dist, src, dj)
@@ -597,16 +802,23 @@ def main() -> int:
         fr.rounds = 0
         mp.launches.update(minplus=0, minplus_argmin=0)
         fb.launches.update(fw_block=0, fw_block_pred=0)
+        clusters_seen(_build)
         t0 = time.perf_counter()
         res = repro_torch.solve(h, **options)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        seen = clusters_seen(_build)
         got = {k: v for k, v in counts().items() if v}
         check(got == expect, f"{label}: launches {got}, expected {expect}")
+        want = {k: fb.closure_plan(256, pred=k == "fw_block_pred").cluster if k in got else 0
+                for k in seen}
+        check(seen == want, f"{label}: the closures ran on clusters of {seen}, expected {want}")
+        path_clusters[label] = seen
         check(res.dist.is_cuda and (res.pred is None or (res.pred.is_cuda and
               res.pred.dtype == torch.int32)), f"{label}: result off the card")
         path_launches[label] = got
-        print(f"{label}: repro_torch.solve {wall:.3f} s host clock, launches {got}")
+        print(f"{label}: repro_torch.solve {wall:.3f} s host clock, launches {got}, "
+              f"clusters read from the card {seen}")
         return res
 
     path_launches = {}
@@ -700,54 +912,36 @@ def main() -> int:
         print(f"N=2048 {'split' if split else 'fused'} with_pred: dist and pred equal to the "
               f"plain pred solve on the card")
 
-    # 4. The device breakdown of one solve (device rows only: kernels, memcpy, memset).
+    # 4. The times (fw_round a round, every solve path's median) and the
+    # device breakdown of one main, pred and split solve (device rows only:
+    # kernels, memcpy, memset), each grid counted against the path's rounds.
     h_np, rounds = results[8192][:2]
     h_dev = torch.from_numpy(h_np).to(dev)
-    repro_torch.solve(h_dev)
-    torch.cuda.synchronize()
-    fr.rounds = 0
-    per_kernel, busy, window = device_breakdown("one solve", lambda: repro_torch.solve(h_dev))
-    traced_rounds = fr.rounds
+    measured = timings(repro_torch, h_dev)
+    traces = measured["traces"]
+    per_kernel, busy, window = traces["main N=8192"]
     grids = {}
     for kernel in ("fw_closure", "fw_colpanel", "fw_update"):
         count = grid_count(per_kernel, kernel)
-        check(count == traced_rounds,
-              f"{kernel} ran {count} times in a solve of {traced_rounds} rounds")
+        check(count == rounds, f"{kernel} ran {count} times in a solve of {rounds} rounds")
         grids[kernel] = count
-    grid_launches_per_round = sum(grids.values()) / traced_rounds
+    grid_launches_per_round = sum(grids.values()) / rounds
+    round_grid_ms = {k: grid_ms(per_kernel, k) for k in grids}
+    for path, per_round in (("with_pred N=8192", {"fw_block_pred": 1, "minplus_argmin": 2}),
+                            ("split N=8192", {"fw_block": 1, "minplus": 3})):
+        for kernel, k_ in per_round.items():
+            count = grid_count(traces[path][0], kernel)
+            check(count == k_ * rounds,
+                  f"{kernel} ran {count} times in a {path} solve of {rounds} rounds")
 
-    # 4b. The device breakdown of a solve with predecessors and of a split one.
-    repro_torch.solve(h_dev, with_pred=True)
-    torch.cuda.synchronize()
-    per_kernel_p, busy_p, window_p = device_breakdown(
-        "one solve with predecessors", lambda: repro_torch.solve(h_dev, with_pred=True))
-    for kernel, per_round in (("fw_block_pred", 1), ("minplus_argmin", 2)):
-        count = grid_count(per_kernel_p, kernel)
-        check(count == per_round * rounds,
-              f"{kernel} ran {count} times in a pred solve of {rounds} rounds")
-    repro_torch.solve(h_dev, round_mode="split")
-    torch.cuda.synchronize()
-    per_kernel_s, busy_s, window_s = device_breakdown(
-        "one split solve", lambda: repro_torch.solve(h_dev, round_mode="split"))
-    for kernel, per_round in (("fw_block", 1), ("minplus", 3)):
-        count = grid_count(per_kernel_s, kernel)
-        check(count == per_round * rounds,
-              f"{kernel} ran {count} times in a split solve of {rounds} rounds")
-
-    # 6 (run here, before the timings). The dynamic engine at N = 8192.
+    # 6 (run here, before the kernels line). The dynamic engine at N = 8192.
     lane_rate = sms * FP32_LANES_PER_SM * clock_mhz * 1e6
     row_close_entry, dynamic_launches, dynamic_ms = drive_dynamic(dev, card, lane_rate)
     path_launches["dynamic N=8192"] = dynamic_launches
 
-    # 5. Times, the bound and the kernels line.
+    # 5. The plain version's time, the bound and the kernels line.
     n, b = 8192, 256
-    d = pad_to_multiple(h_dev, b).clone()
-    round_ms = []
-    for _ in range(3):
-        d.copy_(h_dev)
-        for t in range(n // b):
-            round_ms.append(cuda_ms(lambda: fr.fw_round_cuda(d, t * b, block_size=b)))
-    solve_ms = [cuda_ms(lambda: repro_torch.solve(h_dev)) for _ in range(3)]
+    round_ms, solves = measured["round_ms"], measured["solve_ms"]
     fr.fw_round_torch(h_dev, n // 2, block_size=b)
     plain_ms = [cuda_ms(lambda: fr.fw_round_torch(h_dev, n // 2, block_size=b))
                 for _ in range(3)]
@@ -769,7 +963,7 @@ def main() -> int:
         "grid_launches_per_round": grid_launches_per_round,
         "max_abs_err": err,
         "ms": statistics.median(round_ms),
-        "solve_ms": statistics.median(solve_ms),
+        "solve_ms": solves["main N=8192"],
         "plain_ms": statistics.median(plain_ms),
         "bound_ms": bound_ms,
         "bound_solve_ms": bound_ms * rounds,
@@ -777,11 +971,18 @@ def main() -> int:
         "bound_clock_mhz": clock_mhz,
         "library_ms": None,
         "shape": f"N={n} B={b} G=1 {str(h_dev.dtype).replace('torch.', '')}",
+        "grid_ms": round_grid_ms,
+        "closure": {"grid": "fw_closure", "cluster": path_clusters["main N=8192"]["fw_closure"],
+                    "ms": round_grid_ms["fw_closure"],
+                    "ms_per_step": round_grid_ms["fw_closure"] / b},
         "device_busy_share": busy / window,
         "card": card,
     }
     print(f"fw_round on {card}: {line['ms']:.4f} ms a round (median of "
-          f"{len(round_ms)}), {line['solve_ms']:.3f} ms a solve (median of 3), bound "
+          f"{len(round_ms)}; grids {json.dumps(round_grid_ms)} ms a round in the traced solve; "
+          f"closure on a cluster of {line['closure']['cluster']} CTAs read from the card, "
+          f"{1e3 * line['closure']['ms_per_step']:.3f} us a step), "
+          f"{line['solve_ms']:.3f} ms a solve (median of 3), bound "
           f"{bound_ms:.4f} ms a round by {line['bound_by']} at {clock_mhz:g} MHz "
           f"(operations {ops_ms:.4f} ms, bytes {bytes_ms:.4f} ms), plain "
           f"{line['plain_ms']:.3f} ms a round")
@@ -819,11 +1020,6 @@ def main() -> int:
     }
     path_of = {"minplus": "split N=8192", "minplus_argmin": "with_pred N=8192",
                "fw_block": "split N=8192", "fw_block_pred": "with_pred N=8192"}
-    solve_of = {"split N=8192": {"round_mode": "split"},
-                "with_pred N=8192": {"with_pred": True},
-                "split with_pred N=8192": {"round_mode": "split", "with_pred": True}}
-    solves = {label: median_ms(lambda o_=o_: repro_torch.solve(h_dev, **o_))
-              for label, o_ in solve_of.items()}
     sources = {"minplus": ("minplus.cu", "minplus.py:235"),
                "minplus_argmin": ("minplus.cu", "minplus.py:284"),
                "fw_block": ("fw_block.cu", "fw_block.py:34"),
@@ -857,10 +1053,16 @@ def main() -> int:
             "other_shapes_ms": {lbl: median_ms(lambda a_=a_: cuda_fn(*a_), reps=10)
                                 for lbl, a_ in other_shapes.get(kind, {}).items()},
             "solve_ms": solves[path_of[kind]],
-            "device_busy_share": (busy_p / window_p if "pred" in path_of[kind]
-                                  else busy_s / window_s),
+            "device_busy_share": traces[path_of[kind]][1] / traces[path_of[kind]][2],
             "card": card,
         }
+        if kind.startswith("fw_block"):
+            # CUDA events around one wrapper call count its host time too;
+            # the traced solve's rows give the kernel's own device time.
+            device = grid_ms(traces[path_of[kind]][0], kind)
+            entry["cluster"] = path_clusters[path_of[kind]][kind]
+            entry["device_ms"] = device
+            entry["ms_per_step"] = device / b
         lines.append(entry)
         print(f"{kind} on {card}: {k_ms:.4f} ms at {shape} (median of 10), bound "
               f"{entry['bound_ms']:.4f} ms by {entry['bound_by']} (operations {ops_k:.4f} ms "
@@ -878,4 +1080,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--times":
+        sys.exit(times(Path(sys.argv[2])))
     sys.exit(main())

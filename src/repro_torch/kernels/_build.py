@@ -106,7 +106,7 @@ def ptxas_report(name: str) -> Dict[str, Dict[str, int]]:
     for line in log.read_text().splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(_Z\w+)", line)
         if m:
-            current = _kernel_key(m.group(1))
+            current = kernel_key(m.group(1))
             out.setdefault(current, {"registers": -1, "spill_bytes": 0})
             continue
         if current is None:
@@ -123,7 +123,7 @@ def ptxas_report(name: str) -> Dict[str, Dict[str, int]]:
 _TEMPLATE_ARG = re.compile(r"Li(\d+)E|Lb([01])E|(f)|(13__nv_bfloat16)")
 
 
-def _kernel_key(mangled: str) -> str:
+def kernel_key(mangled: str) -> str:
     """``_ZN11repro_torch9fw_updateILi0EfEEv...`` -> ``fw_update<0,float>``,
     ``..14minplus_argminILi2ELb1EEEv...`` -> ``minplus_argmin<2,true>``."""
     m = re.search(r"repro_torch(\d+)", mangled)

@@ -1,139 +1,345 @@
-// The B x B pivot closure shared by fw_round.cu (stage 1 of the fused
-// round) and fw_block.cu (the split round's stage 1):
+// The B x B tile closure of the port, on one thread-block cluster:
 //   for k in 0..B:  A <- A ⊕ A[:, k] ⊗ A[k, :]
-// B sequential rank-1 ⊕⊗ steps on one CTA of 512 threads.  An f32 tile at
-// B = 256 is 256 KiB, more than the 227 KB a CTA may have, so each thread
-// holds its share half in registers and half in shared memory; row k and
-// column k pass through shared buffers between barriers.
+// shared by fw_round.cu (stage 1 of the fused round, fw_closure) and
+// fw_block.cu (fw_block, the split round's stage 1, and fw_block_pred).
+//
+// It replaces a closure that ran on one CTA of one SM (0.74 ms a
+// tile at B = 256 on an H100, each of the B steps two CTA barriers and a branch-tree
+// pick of row k out of registers; fw_block_pred kept its tile in global
+// memory and moved B^2 values through one SM's share of L2 a step).
+//
+// Layout.  A cluster of C CTAs (C = 8, the portable maximum) closes one
+// tile.  CTA c owns rows [c*R, min(B, c*R + R)), R = ceil(B/C) rounded up
+// to a multiple of Q = kCloseStep (<= 32), and thread j of it owns column j
+// of those rows: R values (and R preds) in registers, so the tile stays on
+// chip from the first load to the final store.  Registers, not shared
+// memory, hold it: a step then costs R candidates a thread and no
+// shared-memory traffic for the tile itself.  CTAs that own no rows (small
+// B, or B not a multiple of C*Q) still take part in every barrier.
+//
+// Q pivots a cluster barrier.  A cluster barrier costs about 1500 cycles on an H100
+// (PERF.md: a one-pivot-a-barrier design spent 0.19 of its 0.25 ms a
+// tile in barriers), so each barrier carries the Q pivots k0..k0+Q, which
+// one CTA owns.  Every step still reads the old row and column of its
+// pivot, as the JAX step does (src/repro/kernels/fw_block.py:79-91; under
+// a tropical negative cycle step k rewrites both), and every element goes
+// through exactly the sequential steps' operations in their order, so the
+// bits are those of the plain version:
+//   * before the barrier, the threads of columns k0..k0+Q publish this
+//     CTA's rows of those columns (old) into a slot of its shared memory;
+//     the owner steps its Q pivot rows through the Q steps among
+//     themselves (Q - 1 CTA barriers, each broadcasting one column's
+//     coefficients) and publishes rows k0+t as steps k0..k0+t-1 leave them
+//     (values, and preds) into a slot of its own;
+//   * one cluster barrier (barrier.cluster.arrive = release, wait =
+//     acquire) makes both visible;
+//   * each thread reads its elements of the Q published rows from the
+//     owner through distributed shared memory (mapa + ld.shared::cluster);
+//     the warp of columns k0..k0+Q steps this CTA's Q columns through the
+//     Q pivots (lane r for row r, the pivot-block elements by shuffle) and
+//     shares them after one CTA barrier; every thread then applies the Q
+//     steps to its R values.
+// The slots are double-buffered by the parity of the super-step: a CTA that
+// publishes super-step m+1 has passed the barrier of m, so every CTA has
+// finished reading the slots of m-1.  After the last one more cluster
+// barrier keeps every CTA alive until no other CTA can read its slots.
+//
+// What bounds it.  A closure is a chain of B dependent steps: each waits for
+// the row that the step before it finished.  Its card-wide operations
+// bound (B^3 candidates over 132 SMs) cannot be reached; B/Q super-steps
+// each cost one cluster barrier, one DSMEM read a published row and Q*R
+// candidates a thread.
 #pragma once
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
 
 #include "semiring.cuh"
 
 namespace repro_torch {
 
-constexpr int kCloseThreads = 512;
 constexpr int kCloseMaxB = 256;
-// Thread t owns column j = t % B of the rows i0 + r * groups, where
-// groups = 512 / B and i0 = t / B: at most 128 rows for B <= 256.  The
-// tile (256 KiB at B = 256) is as large as the register file, so a thread
-// keeps kCloseRegRows of its rows in registers and the rest in shared
-// memory, four rows to a float4.
-// Column k is published in a permuted layout, each i0's rows contiguous,
-// so that a thread reads the column values of its rows four at a time.
-constexpr int kCloseMaxRows = 128;
-constexpr int kCloseRegRows = 64;
-constexpr int kCloseShQuads = (kCloseMaxRows - kCloseRegRows) / 4;
-// i0 * rp + r over all threads, rp = rows a thread rounded up to 4: at
-// most B + 4 * groups <= 2049 floats.
-constexpr int kCloseColFloats = 2560;
-constexpr size_t kCloseSmemBytes =
-    (kCloseMaxB + kCloseColFloats) * sizeof(float) +
-    kCloseShQuads * kCloseThreads * sizeof(float4);
+constexpr int kClusterMax = 8;          // the portable cluster size
+constexpr int kCloseMaxRows = 32;       // ceil(kCloseMaxB / kClusterMax)
+constexpr int kCloseStep = 8;           // pivots a cluster barrier
 
-// v[r] for a run-time r, by a branch tree (registers cannot be indexed).
-template <int LO, int HI, int N>
-__device__ __forceinline__ float pick(const float (&v)[N], int r) {
-  if constexpr (HI - LO == 1) {
-    return v[LO];
+// Dynamic shared memory of one CTA: the old column slots [2][Q][32], the
+// stepped columns [Q][32], the pivot-row coefficients [Q][Q], the row slots [2][Q][b]
+// and, with preds, the pred slots [2][Q][b] (Q = kCloseStep).
+__host__ __device__ constexpr int close_smem_bytes(int b, bool pred) {
+  return 4 * (3 * kCloseStep * kCloseMaxRows + kCloseStep * kCloseStep +
+              2 * kCloseStep * b * (pred ? 2 : 1));
+}
+
+// A launch plan (computed by the Python wrapper, kernels/fw_block.py
+// closure_plan) that this closure can run: every row owned, R rows in
+// registers in whole groups of Q pivots, one thread a column, the slots
+// inside the shared bytes.
+__host__ __device__ inline bool close_plan_ok(int b, bool pred, int cluster, int rows,
+                                              int threads, int shared) {
+  return b >= 1 && b <= kCloseMaxB && cluster >= 1 && cluster <= kClusterMax &&
+         rows >= 1 && rows <= kCloseMaxRows && rows % kCloseStep == 0 &&
+         cluster * rows >= b && threads >= b &&
+         threads <= kCloseMaxB && threads % 32 == 0 && shared >= close_smem_bytes(b, pred) &&
+         shared <= 232448;
+}
+
+// The cluster size (%cluster_nctarank) of the latest launch of a closure
+// without (index 0) and with (1) preds, as the hardware reports it to the
+// grid's first thread at its end: a record of the launch that the smoke
+// reads back through cluster_ctas_seen, one store a launch.
+__device__ int g_closure_cluster[2];
+
+// The recorded cluster size of the closure with or without preds, set back
+// to 0 (0: none launched since the last read); a negative cudaError_t if
+// the copy fails.  Synchronous: for checks and measurements, not the path.
+inline int cluster_ctas_seen(bool pred) {
+  int seen[2] = {0, 0};
+  const int zero = 0;
+  cudaError_t err = cudaMemcpyFromSymbol(seen, g_closure_cluster, sizeof seen);
+  if (err == cudaSuccess)
+    err = cudaMemcpyToSymbol(g_closure_cluster, &zero, sizeof zero, pred ? sizeof zero : 0);
+  return err == cudaSuccess ? seen[pred ? 1 : 0] : -static_cast<int>(err);
+}
+
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ unsigned cluster_size() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(r));
+  return r;
+}
+
+// barrier.cluster.arrive has release and barrier.cluster.wait acquire
+// semantics at cluster scope by default.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;" ::: "memory");
+}
+
+// The 32-bit word at `local` (a shared-memory address of this CTA) in the
+// shared memory of CTA `rank` of the cluster.
+__device__ __forceinline__ uint32_t ld_cluster_b32(const void* local, unsigned rank) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(local));
+  uint32_t remote, v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(a), "r"(rank));
+  asm volatile("ld.shared::cluster.b32 %0, [%1];" : "=r"(v) : "r"(remote) : "memory");
+  return v;
+}
+
+// One pivot step k applied to an element: x <- x ⊕ a ⊗ b with a from column
+// k and b from row k, as the JAX step does it: ⊕ itself without preds
+// (NaN propagates), a strict-improvement select with preds (px <- pb).
+template <int SR, bool PRED>
+__device__ __forceinline__ void relax(float& x, int& px, float a, float b, int pb) {
+  using S = Semiring<SR>;
+  const float via = S::mul(a, b);
+  if constexpr (PRED) {
+    const bool up = S::better(via, x);
+    x = up ? via : x;
+    px = up ? pb : px;
   } else {
-    constexpr int MID = (LO + HI) / 2;
-    if (r < MID) return pick<LO, MID>(v, r);
-    return pick<MID, HI>(v, r);
+    x = S::add(x, via);
   }
 }
 
-// Close the b x b tile at dg (row stride n) into ag (b x b, row stride b),
-// rounded through the storage type.  One CTA of kCloseThreads threads, with
-// kCloseSmemBytes of dynamic shared memory at smem4.
-template <int SR, class T>
-__device__ __forceinline__ void close_tile(const T* __restrict__ dg, float* __restrict__ ag,
-                                           int n, int b, float4* smem4) {
+template <int SR, bool PRED>
+__device__ __forceinline__ float relaxed(float x, float a, float b) {
+  int unused = 0;
+  relax<SR, PRED>(x, unused, a, b, 0);
+  return x;
+}
+
+// Close tile number blockIdx.x / C: b x b at dg (row stride ld, storage T),
+// with int32 preds at pg (row stride b) when PRED.  Writes the closed tile
+// to out (b x b, row stride b), rounded through the storage type, and the
+// preds to pout.  `rows` is R of the launch plan (a multiple of
+// kCloseStep); the cluster is C CTAs of blockDim.x >= b threads with
+// close_smem_bytes(b, PRED) of dynamic shared memory at smem.  Every thread
+// of the cluster must call it.
+template <int SR, bool PRED, class T>
+__device__ __forceinline__ void cluster_close(const T* __restrict__ dg, long long ld,
+                                              const int* __restrict__ pg,
+                                              float* __restrict__ out, int* __restrict__ pout,
+                                              int b, int rows, float* smem) {
   using S = Semiring<SR>;
-  float* srow = reinterpret_cast<float*>(smem4);     // row k of the tile
-  float* scol = srow + kCloseMaxB;                   // column k, permuted
-  float4* spart = reinterpret_cast<float4*>(scol + kCloseColFloats);  // [quad][thread]
-  const int t = threadIdx.x;
-  const int groups = kCloseThreads / b;
-  const int j = t % b;
-  const int i0 = t / b;
-  const int nr = i0 < groups ? (b - i0 + groups - 1) / groups : 0;
-  const int rp = ((b + groups - 1) / groups + 3) & ~3;
-  float* mycol = scol + i0 * rp;                     // column k at my rows
-  auto load = [&](int r) {
-    return r < nr ? Storage<T>::load(dg[(long long)(i0 + r * groups) * n + j]) : S::zero();
-  };
+  constexpr int Q = kCloseStep, MR = kCloseMaxRows;
+  const unsigned rank = cluster_rank();
+  const int csize = static_cast<int>(cluster_size());
+  const int j = threadIdx.x;
+  const int lane = j & 31;
+  const bool mine = j < b;                              // a column of the tile
+  const int r0 = static_cast<int>(rank) * rows;
+  const int nr = max(0, min(b - r0, rows));             // rows this CTA owns
+  float* colv = smem;                                   // [2][Q][MR] old columns
+  float* colr = colv + 2 * Q * MR;                      // [Q][MR] stepped columns
+  float* coef = colr + Q * MR;                          // [Q][Q] pivot-row coefficients
+  float* rowv = coef + Q * Q;                           // [2][Q][b] stepped rows
+  int* rowp = reinterpret_cast<int*>(rowv + 2 * Q * b); // [2][Q][b], PRED only
 
-  float v[kCloseRegRows];
+  // Rows past nr hold the zero and are folded like the others, but never
+  // published or stored.
+  float v[MR];
+  int p[PRED ? MR : 1];
 #pragma unroll
-  for (int r = 0; r < kCloseRegRows; ++r) v[r] = load(r);
-#pragma unroll
-  for (int q = 0; q < kCloseShQuads; ++q) {
-    const int r = kCloseRegRows + 4 * q;
-    if (r < nr)
-      spart[q * kCloseThreads + t] = make_float4(load(r), load(r + 1), load(r + 2), load(r + 3));
+  for (int r = 0; r < MR; ++r) {
+    const bool in = mine && r < nr;
+    v[r] = in ? Storage<T>::load(dg[(long long)(r0 + r) * ld + j]) : S::zero();
+    if constexpr (PRED) p[r] = in ? pg[(long long)(r0 + r) * b + j] : -1;
   }
 
-  for (int k = 0; k < b; ++k) {
-    if (j == k) {
+  int m = 0;                                            // super-step
+  for (int kc = 0; kc < csize; ++kc) {
+    // rk0, the owner's local row of pivot k0, is a constant in each
+    // unrolled copy, so v[rk0 + t] is a register, not a run-time index.
 #pragma unroll
-      for (int q = 0; q < kCloseRegRows / 4; ++q)
-        if (4 * q < nr)
-          *reinterpret_cast<float4*>(&mycol[4 * q]) =
-              make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+    for (int rk0 = 0; rk0 < MR; rk0 += Q) {
+      const int k0 = kc * rows + rk0;
+      if (rk0 < rows && k0 < b) {
+        const int s = min(Q, b - k0);                   // pivots k0..k0+s
+        const int buf = m & 1;
+        const int t0 = j - k0;
+        // The old columns k0..k0+Q of this CTA's rows, from their threads.
+        if (t0 >= 0 && t0 < Q) {
 #pragma unroll
-      for (int q = 0; q < kCloseShQuads; ++q)
-        if (kCloseRegRows + 4 * q < nr)
-          *reinterpret_cast<float4*>(&mycol[kCloseRegRows + 4 * q]) = spart[q * kCloseThreads + t];
-    }
-    const int kr = k - i0;
-    if (nr > 0 && kr >= 0 && kr % groups == 0) {
-      const int rk = kr / groups;
-      srow[j] = rk < kCloseRegRows
-                    ? pick<0, kCloseRegRows>(v, rk)
-                    : reinterpret_cast<const float*>(
-                          &spart[((rk - kCloseRegRows) / 4) * kCloseThreads + t])[(rk - kCloseRegRows) % 4];
-    }
-    __syncthreads();
-    const float rj = srow[j];
+          for (int q = 0; q < MR / 4; ++q)
+            *reinterpret_cast<float4*>(&colv[(buf * Q + t0) * MR + 4 * q]) =
+                make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+        }
+        // The owner publishes rows k0+t as steps k0..k0+t-1 leave them:
+        // step k0+t' of row k0+t takes its coefficient, the row's element
+        // in column k0+t' after t' steps, from the thread of that column.
+        if (static_cast<int>(rank) == kc) {
+          float x[Q];
+          int px[Q];
 #pragma unroll
-    for (int q = 0; q < kCloseRegRows / 4; ++q) {
-      if (4 * q < nr) {
-        const float4 c = *reinterpret_cast<const float4*>(&mycol[4 * q]);
-        v[4 * q] = S::add(v[4 * q], S::mul(c.x, rj));
-        v[4 * q + 1] = S::add(v[4 * q + 1], S::mul(c.y, rj));
-        v[4 * q + 2] = S::add(v[4 * q + 2], S::mul(c.z, rj));
-        v[4 * q + 3] = S::add(v[4 * q + 3], S::mul(c.w, rj));
+          for (int t = 0; t < Q; ++t) {
+            x[t] = v[rk0 + t];
+            if constexpr (PRED) px[t] = p[rk0 + t];
+            else px[t] = 0;
+          }
+#pragma unroll
+          for (int tp = 0; tp < Q - 1; ++tp) {
+            if (t0 == tp) {
+#pragma unroll
+              for (int t = tp + 1; t < Q; ++t) coef[tp * Q + t] = x[t];
+            }
+            __syncthreads();
+#pragma unroll
+            for (int t = tp + 1; t < Q; ++t) relax<SR, PRED>(x[t], px[t], coef[tp * Q + t], x[tp], px[tp]);
+          }
+          if (mine) {
+#pragma unroll
+            for (int t = 0; t < Q; ++t) {
+              if (t < s) {
+                rowv[(buf * Q + t) * b + j] = x[t];
+                if constexpr (PRED) rowp[(buf * Q + t) * b + j] = px[t];
+              }
+            }
+          }
+        }
+        cluster_arrive();
+        cluster_wait();
+        // Rows k0..k0+s from the owner, through distributed shared memory.
+        float P[Q];
+        int PP[Q];
+#pragma unroll
+        for (int t = 0; t < Q; ++t) {
+          P[t] = S::zero();
+          PP[t] = -1;
+          if (mine && t < s) {
+            P[t] = __uint_as_float(ld_cluster_b32(&rowv[(buf * Q + t) * b + j], kc));
+            if constexpr (PRED)
+              PP[t] = static_cast<int>(ld_cluster_b32(&rowp[(buf * Q + t) * b + j], kc));
+          }
+        }
+        // The warp that holds columns k0..k0+Q steps this CTA's column
+        // values through them, lane r for row r; A[k0+t'][k0+t] after t'
+        // steps is P[t'] of lane k0+t.
+        if (j / 32 == k0 / 32) {
+          float y[Q];
+#pragma unroll
+          for (int t = 0; t < Q; ++t) {
+            y[t] = colv[(buf * Q + t) * MR + lane];
+#pragma unroll
+            for (int tp = 0; tp < t; ++tp)
+              y[t] = relaxed<SR, PRED>(y[t], y[tp], __shfl_sync(0xffffffffu, P[tp], (k0 & 31) + t));
+            colr[t * MR + lane] = y[t];
+          }
+        }
+        __syncthreads();
+#pragma unroll
+        for (int t = 0; t < Q; ++t) {
+          if (t < s) {
+#pragma unroll
+            for (int q = 0; q < MR / 4; ++q) {
+              const float4 c4 = *reinterpret_cast<const float4*>(&colr[t * MR + 4 * q]);
+              const float cs[4] = {c4.x, c4.y, c4.z, c4.w};
+#pragma unroll
+              for (int l = 0; l < 4; ++l) {
+                if constexpr (PRED) {
+                  relax<SR, true>(v[4 * q + l], p[4 * q + l], cs[l], P[t], PP[t]);
+                } else {
+                  int unused = 0;
+                  relax<SR, false>(v[4 * q + l], unused, cs[l], P[t], PP[t]);
+                }
+              }
+            }
+          }
+        }
+        ++m;
       }
     }
+  }
+  // No CTA leaves while another may still read its slots.
+  cluster_arrive();
+  cluster_wait();
+
+  if (mine) {
 #pragma unroll
-    for (int q = 0; q < kCloseShQuads; ++q) {
-      if (kCloseRegRows + 4 * q < nr) {
-        const float4 c = *reinterpret_cast<const float4*>(&mycol[kCloseRegRows + 4 * q]);
-        float4 x = spart[q * kCloseThreads + t];
-        x.x = S::add(x.x, S::mul(c.x, rj));
-        x.y = S::add(x.y, S::mul(c.y, rj));
-        x.z = S::add(x.z, S::mul(c.z, rj));
-        x.w = S::add(x.w, S::mul(c.w, rj));
-        spart[q * kCloseThreads + t] = x;
+    for (int r = 0; r < MR; ++r) {
+      if (r < nr) {
+        out[(long long)(r0 + r) * b + j] = Storage<T>::round(v[r]);
+        if constexpr (PRED) pout[(long long)(r0 + r) * b + j] = p[r];
       }
     }
-    __syncthreads();
   }
+  // Read afresh here, where nothing else is live, so that the record costs
+  // the closure no register.
+  if (blockIdx.x == 0 && j == 0) g_closure_cluster[PRED ? 1 : 0] = cluster_size();
+}
 
-  ag += j;
-#pragma unroll
-  for (int r = 0; r < kCloseRegRows; ++r)
-    if (r < nr) ag[(i0 + r * groups) * b] = Storage<T>::round(v[r]);
-#pragma unroll
-  for (int q = 0; q < kCloseShQuads; ++q) {
-    const float4 x = spart[q * kCloseThreads + t];
-    const float xs[4] = {x.x, x.y, x.z, x.w};
-#pragma unroll
-    for (int l = 0; l < 4; ++l) {
-      const int r = kCloseRegRows + 4 * q + l;
-      if (r < nr) ag[(i0 + r * groups) * b] = Storage<T>::round(xs[l]);
-    }
+// Launch `kernel` as `tiles` clusters of `cluster` CTAs.
+template <class... Params, class... Args>
+cudaError_t launch_clusters(void (*kernel)(Params...), int tiles, int cluster, int threads,
+                            int shared, cudaStream_t s, Args... args) {
+  if (shared > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           shared);
+    if (err != cudaSuccess) return err;
   }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles * cluster);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = shared;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 }  // namespace repro_torch

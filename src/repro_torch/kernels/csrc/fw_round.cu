@@ -10,34 +10,43 @@
 // TPU kernel does (fw_round.py:102,107,112).
 //
 // What bounds it on this card.  The update does G*N*N*B candidates, each one
-// ⊗ and one ⊕ FP32 instruction with no fused form and no tensor-core MMA,
-// so it is bound by CUDA-core issue: 2*G*N^3 / (132 SMs * 128 lanes * SM
-// clock) a solve, about 34 ms at N = 8192 and 1.98 GHz.  Its memory traffic,
-// 2*N*N*4 bytes a round, is far below that.  The design keeps the update's
-// fold in register micro-tiles (minplus_tile.cuh) so that shared-memory
-// reads do not become the limit.
+// ⊗ and one ⊕ FP32 instruction (min.NaN is one FMNMX.NAN in the SASS) with
+// no tensor-core MMA, so it is bound by CUDA-core issue: 2*G*N^3 / (132 SMs
+// * 128 lanes * SM clock) a solve, about 34 ms at N = 8192 and 1.98 GHz.
+// Its memory traffic, 2*N*N*4 bytes a round, is far below that.  The
+// closure is a chain of B dependent steps and has no card-wide bound.
 //
-// Shared memory.  The TPU kernel closes the whole pivot in VMEM once per
-// row stripe.  An f32 pivot at B = 256 is 256 KiB, more than the 227 KB a
-// CTA may have, so the round is three grids on one stream:
-//   1. fw_closure:  one CTA of 512 threads per graph closes its pivot
-//      (close_tile, fw_closure.cuh, shared with fw_block.cu).  Each thread
-//      holds its share of the B x B tile, half in registers and half in
-//      shared memory; row k and column k pass through shared buffers
-//      between barriers.  This grid is serial work on G CTAs while the
-//      other SMs wait: it is the first thing a later change should overlap.
-//   2. fw_colpanel: col' into a (G, N, B) f32 scratch with the tiled fold;
-//      it also copies the pivot row panel into a (G, B, N) f32 scratch.
-//   3. fw_update:   CTAs over (G, N/BM, N/BN) output tiles fold
-//      col' ⊗ rowpanel over k = 0..B on top of D and write D in place.
+// The round is three grids on one stream (an f32 pivot at B = 256 is 256 KiB,
+// more than one CTA's 227 KB of shared memory):
+//   1. fw_closure:  one thread-block cluster of 8 CTAs a graph closes its
+//      pivot (cluster_close, fw_closure.cuh, shared with fw_block.cu): the
+//      tile in the cluster's registers, one cluster barrier for each 8
+//      pivots.  It replaces a one-CTA closure (0.74 ms a round at B = 256 on an H100,
+//      a quarter of the solve) that ran while 131 SMs waited.
+//   2. fw_colpanel: col' with the tiled fold (fold_tile) in 64 x 64 tiles,
+//      (B/64) * (N/64) CTAs (512 at N = 8192, B = 256, against 128 before),
+//      written transposed through shared memory into a (G, B, Np) f32
+//      scratch; the CTAs of the first column of tiles also copy the pivot
+//      row panel into a (G, B, Np) f32 scratch.
+//   3. fw_update:   CTAs over (G, N/64, N/128) output tiles fold
+//      col'^T ⊗ rowpanel over k = 0..B on top of D and write D in place.
+//      Both operands are k-major rows of the scratches, so the fold
+//      (fold_ring, minplus_tile.cuh) fills a ring of three shared-memory
+//      slices of 32 k steps with 16-byte cp.async copies two slices ahead,
+//      with one CTA barrier a slice.  It replaces a fold that staged each
+//      16-step slice with scalar loads and a transposing store and then
+//      waited (2.06 ms a round on an H100, half its operations bound; 2.43 SASS
+//      instructions a candidate, 0.37 of them staging).
+// Np is N rounded up to a multiple of 32 floats (computed by the wrapper),
+// so every row of both scratches is 16-byte aligned for any N.
 // In-place hazard: grid 3 reads the row panel while the CTAs that own those
 // rows overwrite them, so it reads the copy grid 2 made.  Scratch is
-// G*(B*B + 2*N*B) floats (16 MiB at N = 8192, B = 256), against the second
+// G*(B*B + 2*B*Np) floats (16 MiB at N = 8192, B = 256), against the second
 // N x N buffer (256 MiB) that ping-pong would take.
 //
-// The wrapper (kernels/fw_round.py) checks shapes and allocates the scratch;
-// everything launches on the caller's stream, and each launch's error is
-// returned to it.
+// The wrapper (kernels/fw_round.py) checks shapes, computes the closure's
+// launch plan and Np, and allocates the scratch; everything launches on the
+// caller's stream, and each launch's error is returned to it.
 #include <cuda_runtime.h>
 
 #include "fw_closure.cuh"
@@ -46,107 +55,138 @@
 
 namespace repro_torch {
 
-constexpr int BM = 128, BN = 128, BK = 16, TM = 8, TN = 8;
-using Shape = TileShape<BM, BN, BK, TM, TN>;
+// Column panel tiles (fold_tile) and their transposed staging pitch.
+constexpr int PM = 64, PN = 64, PK = 16, PT = 4;
+using Panel = TileShape<PM, PN, PK, PT, PT>;
+constexpr int kPanelPitch = PM + 1;
+constexpr int kPanelSmemFloats =
+    Panel::kSmemFloats > PN * kPanelPitch ? Panel::kSmemFloats : PN * kPanelPitch;
+
+// Update tiles (fold_ring): 64 x 128 outputs, 32-deep k slices, 3 slots.
+constexpr int UM = 64, UN = 128, UK = 32, kStages = 3;
+using Ring = RingShape<UM, UN, UK, kStages>;
 
 template <int SR, class T>
-__global__ void __launch_bounds__(kCloseThreads, 1)
-fw_closure(const T* __restrict__ d, float* __restrict__ apiv, int n, int b, int o) {
+__global__ void __launch_bounds__(kCloseMaxB)
+fw_closure(const T* __restrict__ d, float* __restrict__ apiv, int n, int b, int o, int rows) {
   extern __shared__ float4 smem4[];
-  close_tile<SR, T>(d + (long long)blockIdx.x * n * n + (long long)o * n + o,
-                    apiv + (long long)blockIdx.x * b * b, n, b, smem4);
+  const long long g = blockIdx.x / cluster_size();
+  cluster_close<SR, false, T>(d + g * n * n + (long long)o * n + o, n, nullptr,
+                              apiv + g * b * b, nullptr, b, rows,
+                              reinterpret_cast<float*>(smem4));
 }
 
 template <int SR, class T>
-__global__ void __launch_bounds__(Shape::kThreads)
+__global__ void __launch_bounds__(Panel::kThreads)
 fw_colpanel(const T* __restrict__ d, const float* __restrict__ apiv,
-            float* __restrict__ colp, float* __restrict__ rowp, int n, int b, int o) {
-  __shared__ __align__(16) float smem[Shape::kSmemFloats];
+            float* __restrict__ colt, float* __restrict__ rowp, int n, int b, int o, int np) {
+  __shared__ __align__(16) float smem[kPanelSmemFloats];
   const int g = blockIdx.z;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int m0 = blockIdx.y * PM, n0 = blockIdx.x * PN;
+  const int t = threadIdx.x;
   const T* dg = d + (long long)g * n * n;
-  float acc[TM][TN];
+  float acc[PT][PT];
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
+  for (int i = 0; i < PT; ++i)
 #pragma unroll
-    for (int jj = 0; jj < TN; ++jj) acc[i][jj] = Semiring<SR>::zero();
-  fold_tile<SR, BM, BN, BK, TM, TN>(acc, dg + o, n, apiv + (long long)g * b * b, b,
+    for (int jj = 0; jj < PT; ++jj) acc[i][jj] = Semiring<SR>::zero();
+  fold_tile<SR, PM, PN, PK, PT, PT>(acc, dg + o, n, apiv + (long long)g * b * b, b,
                                     m0, n0, n, b, b, smem);
-  float* cg = colp + (long long)g * n * b;
-  const int r0 = m0 + Shape::row(threadIdx.x), c0 = n0 + Shape::col(threadIdx.x);
+  // fold_tile ends on a barrier: its shared memory now takes the tile
+  // transposed, [column][row], so that the stores below are row runs.
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
+  for (int i = 0; i < PT; ++i)
 #pragma unroll
-    for (int jj = 0; jj < TN; ++jj)
-      if (r0 + i < n && c0 + jj < b)
-        cg[(long long)(r0 + i) * b + c0 + jj] = Storage<T>::round(acc[i][jj]);
+    for (int jj = 0; jj < PT; ++jj)
+      smem[(Panel::col(t) + jj) * kPanelPitch + Panel::row(t) + i] =
+          Storage<T>::round(acc[i][jj]);
+  __syncthreads();
+  float* cg = colt + (long long)g * b * np;
+  for (int e = t; e < PM * PN; e += Panel::kThreads) {
+    const int c = e / PM, r = e % PM;
+    if (n0 + c < b && m0 + r < n) cg[(long long)(n0 + c) * np + m0 + r] = smem[c * kPanelPitch + r];
+  }
 
-  // Columns m0..m0+BM of the pivot row panel, copied once per row tile.
+  // Columns m0..m0+PM of the pivot row panel, copied once per row tile.
   if (blockIdx.x == 0) {
-    float* rg = rowp + (long long)g * b * n;
-    for (int e = threadIdx.x; e < b * BM; e += Shape::kThreads) {
-      const int r = e / BM, c = m0 + e % BM;
-      if (c < n) rg[(long long)r * n + c] = Storage<T>::load(dg[(long long)(o + r) * n + c]);
+    float* rg = rowp + (long long)g * b * np;
+    for (int e = t; e < b * PM; e += Panel::kThreads) {
+      const int r = e / PM, c = m0 + e % PM;
+      if (c < n) rg[(long long)r * np + c] = Storage<T>::load(dg[(long long)(o + r) * n + c]);
     }
   }
 }
 
-// Two CTAs an SM (at most 128 registers a thread), so that one CTA's
-// k-slice staging overlaps the other's fold.
+// Three CTAs of 128 threads an SM (at most 168 registers a thread, no
+// spills; 3 x 72 KiB of ring).  At two CTAs of 256 threads (128 registers)
+// the fold spilled and ran 1.3% slower on an H100 (PERF.md).
 template <int SR, class T>
-__global__ void __launch_bounds__(Shape::kThreads, 2)
-fw_update(T* __restrict__ d, const float* __restrict__ colp,
-          const float* __restrict__ rowp, int n, int b) {
-  __shared__ __align__(16) float smem[Shape::kSmemFloats];
+__global__ void __launch_bounds__(Ring::kThreads, 3)
+fw_update(T* __restrict__ d, const float* __restrict__ colt, const float* __restrict__ rowp,
+          int n, int b, int np) {
+  extern __shared__ float4 smem4[];
   const int g = blockIdx.z;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int m0 = blockIdx.y * UM, n0 = blockIdx.x * UN;
+  const int t = threadIdx.x;
   T* dg = d + (long long)g * n * n;
-  const int r0 = m0 + Shape::row(threadIdx.x), c0 = n0 + Shape::col(threadIdx.x);
-  float acc[TM][TN];
+  float acc[8][8];
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
+  for (int i = 0; i < 8; ++i) {
+    const int r = m0 + Ring::row(t, i);
 #pragma unroll
-    for (int jj = 0; jj < TN; ++jj)
-      acc[i][jj] = (r0 + i < n && c0 + jj < n)
-                       ? Storage<T>::load(dg[(long long)(r0 + i) * n + c0 + jj])
-                       : Semiring<SR>::zero();
-  fold_tile<SR, BM, BN, BK, TM, TN>(acc, colp + (long long)g * n * b, b,
-                                    rowp + (long long)g * b * n, n, m0, n0, n, n, b, smem);
+    for (int jj = 0; jj < 8; ++jj) {
+      const int c = n0 + Ring::col(t, jj);
+      acc[i][jj] = (r < n && c < n) ? Storage<T>::load(dg[(long long)r * n + c])
+                                    : Semiring<SR>::zero();
+    }
+  }
+  const long long off = (long long)g * b * np;
+  fold_ring<SR, UM, UN, UK, kStages>(acc, colt + off, np, rowp + off, np, m0, n0, b,
+                                     reinterpret_cast<float*>(smem4));
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
+  for (int i = 0; i < 8; ++i) {
+    const int r = m0 + Ring::row(t, i);
 #pragma unroll
-    for (int jj = 0; jj < TN; ++jj)
-      if (r0 + i < n && c0 + jj < n)
-        dg[(long long)(r0 + i) * n + c0 + jj] = Storage<T>::store(acc[i][jj]);
+    for (int jj = 0; jj < 8; ++jj) {
+      const int c = n0 + Ring::col(t, jj);
+      if (r < n && c < n) dg[(long long)r * n + c] = Storage<T>::store(acc[i][jj]);
+    }
+  }
 }
 
+struct ClosePlan {
+  int cluster, rows, threads, shared;
+};
+
 template <int SR, class T>
-cudaError_t launch_round(T* d, float* apiv, float* colp, float* rowp, int g, int n,
-                         int b, int o, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      fw_closure<SR, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kCloseSmemBytes);
+cudaError_t launch_round(T* d, float* apiv, float* colt, float* rowp, int g, int n, int b,
+                         int o, int np, ClosePlan plan, cudaStream_t s) {
+  cudaError_t err = launch_clusters(fw_closure<SR, T>, g, plan.cluster, plan.threads,
+                                    plan.shared, s, static_cast<const T*>(d), apiv, n, b, o,
+                                    plan.rows);
   if (err != cudaSuccess) return err;
-  fw_closure<SR, T><<<g, kCloseThreads, kCloseSmemBytes, stream>>>(d, apiv, n, b, o);
+  const dim3 panel((b + PN - 1) / PN, (n + PM - 1) / PM, g);
+  fw_colpanel<SR, T><<<panel, Panel::kThreads, 0, s>>>(d, apiv, colt, rowp, n, b, o, np);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const dim3 panel((b + BN - 1) / BN, (n + BM - 1) / BM, g);
-  fw_colpanel<SR, T><<<panel, Shape::kThreads, 0, stream>>>(d, apiv, colp, rowp, n, b, o);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const dim3 update((n + BN - 1) / BN, (n + BM - 1) / BM, g);
-  fw_update<SR, T><<<update, Shape::kThreads, 0, stream>>>(d, colp, rowp, n, b);
+  err = cudaFuncSetAttribute(fw_update<SR, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             Ring::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 update((n + UN - 1) / UN, (n + UM - 1) / UM, g);
+  fw_update<SR, T><<<update, Ring::kThreads, Ring::kSmemBytes, s>>>(d, colt, rowp, n, b, np);
   return cudaGetLastError();
 }
 
 template <class T>
-cudaError_t dispatch(int semiring, void* d, void* apiv, void* colp, void* rowp, int g,
-                     int n, int b, int o, cudaStream_t s) {
+cudaError_t dispatch(int semiring, void* d, void* apiv, void* colt, void* rowp, int g, int n,
+                     int b, int o, int np, ClosePlan plan, cudaStream_t s) {
   T* dd = static_cast<T*>(d);
-  float *a = static_cast<float*>(apiv), *c = static_cast<float*>(colp),
+  float *a = static_cast<float*>(apiv), *c = static_cast<float*>(colt),
         *r = static_cast<float*>(rowp);
   switch (semiring) {
-    case 0: return launch_round<0, T>(dd, a, c, r, g, n, b, o, s);
-    case 1: return launch_round<1, T>(dd, a, c, r, g, n, b, o, s);
-    case 2: return launch_round<2, T>(dd, a, c, r, g, n, b, o, s);
-    case 3: return launch_round<3, T>(dd, a, c, r, g, n, b, o, s);
+    case 0: return launch_round<0, T>(dd, a, c, r, g, n, b, o, np, plan, s);
+    case 1: return launch_round<1, T>(dd, a, c, r, g, n, b, o, np, plan, s);
+    case 2: return launch_round<2, T>(dd, a, c, r, g, n, b, o, np, plan, s);
+    case 3: return launch_round<3, T>(dd, a, c, r, g, n, b, o, np, plan, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -154,15 +194,24 @@ cudaError_t dispatch(int semiring, void* d, void* apiv, void* colp, void* rowp, 
 }  // namespace repro_torch
 
 // C interface for ctypes.  d: (g, n, n) contiguous storage, float32
-// (bf16 == 0) or bf16 (bf16 == 1); apiv (g, b, b), colp (g, n, b) and rowp
-// (g, b, n) are float32 scratch.  Returns a cudaError_t.
-extern "C" int fw_round_launch(int semiring, int bf16, void* d, void* apiv, void* colp,
-                               void* rowp, int g, int n, int b, int o, void* stream) {
+// (bf16 == 0) or bf16 (bf16 == 1); apiv (g, b, b), colt (g, b, np) and rowp
+// (g, b, np) are float32 scratch, np a multiple of 32 that is >= n.  The
+// closure's launch plan (cluster, rows, threads, shared) comes from the
+// wrapper and is checked here (close_plan_ok).  Returns a cudaError_t.
+extern "C" int fw_round_launch(int semiring, int bf16, void* d, void* apiv, void* colt,
+                               void* rowp, int g, int n, int b, int o, int np, int cluster,
+                               int rows, int threads, int shared, void* stream) {
   using namespace repro_torch;
   if (g < 1 || n < 1 || b < 1 || b > kCloseMaxB || n % b != 0 || o < 0 || o % b != 0 ||
-      o >= n)
+      o >= n || np < n || np % 32 != 0 ||
+      !close_plan_ok(b, false, cluster, rows, threads, shared))
     return cudaErrorInvalidValue;
+  const ClosePlan plan{cluster, rows, threads, shared};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? dispatch<__nv_bfloat16>(semiring, d, apiv, colp, rowp, g, n, b, o, s)
-              : dispatch<float>(semiring, d, apiv, colp, rowp, g, n, b, o, s);
+  return bf16 ? dispatch<__nv_bfloat16>(semiring, d, apiv, colt, rowp, g, n, b, o, np, plan, s)
+              : dispatch<float>(semiring, d, apiv, colt, rowp, g, n, b, o, np, plan, s);
 }
+
+// The cluster size the latest fw_closure launch ran on, read from the card
+// and set back to 0 (cluster_ctas_seen).
+extern "C" int fw_round_cluster_ctas() { return repro_torch::cluster_ctas_seen(false); }

@@ -27,6 +27,8 @@
 // kernel).  The default compiles to the same index arithmetic as before.
 #pragma once
 
+#include <cstdint>
+
 #include "semiring.cuh"
 
 namespace repro_torch {
@@ -164,6 +166,121 @@ __device__ __forceinline__ void fold_tile_argmin(
     }
     __syncthreads();
   }
+}
+
+// The pipelined fold of fw_round's update (fw_update; minplus, minplus_argmin
+// and row_close keep fold_tile for now).  Both operands arrive as k-major
+// rows, so a k slice of either is BK straight row segments: xt (K x M, the
+// left operand transposed, row pitch ldx) and y (K x N, row pitch ldy).
+// Each row is 16-byte aligned (base and pitch a multiple of 4 floats) and
+// readable up to its pitch.  A ring of STAGES shared-memory slices is
+// filled by 16-byte cp.async copies, STAGES - 1 slices ahead of the fold,
+// with one CTA barrier a slice; fold_tile instead stages each slice with
+// scalar loads and a transposing store, and waits for them.
+//
+// Thread t holds an 8 x 8 micro-tile as two runs of four rows (BM/2 apart)
+// by two runs of four columns (BN/2 apart), so the four 16-byte shared reads
+// of a k step touch consecutive addresses across the warp (no bank
+// conflicts).  Rows k >= K are staged as the semiring zero, which adds
+// nothing; columns past the pitch are staged as 0 and never stored.
+template <int BM, int BN, int BK, int STAGES>
+struct RingShape {
+  static constexpr int TM = 8, TN = 8;
+  static constexpr int kThreads = (BM / TM) * (BN / TN);
+  static constexpr int kStageFloats = BK * (BM + BN);
+  static constexpr int kSmemBytes = STAGES * kStageFloats * 4;
+  static_assert(BM % 8 == 0 && BN % 8 == 0 && STAGES >= 2, "ring tile shape");
+  // Output coordinates of acc[i][j] for thread t: row m0 + row(t, i),
+  // column n0 + col(t, j).
+  static __device__ __forceinline__ int row(int t, int i) {
+    return (i < 4 ? 0 : BM / 2) + (t / (BN / TN)) * 4 + (i & 3);
+  }
+  static __device__ __forceinline__ int col(int t, int j) {
+    return (j < 4 ? 0 : BN / 2) + (t % (BN / TN)) * 4 + (j & 3);
+  }
+};
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// Rows k0..k0+BK of src (pitch ld, W columns from c0) into dst [BK][W].
+template <int SR, int W, int BK, int THREADS>
+__device__ __forceinline__ void ring_copy(float* dst, const float* __restrict__ src,
+                                          long long ld, int c0, int k0, int K) {
+  constexpr int kChunks = BK * W / 4;
+  static_assert(kChunks % THREADS == 0, "whole chunks a thread");
+#pragma unroll
+  for (int q = 0; q < kChunks / THREADS; ++q) {
+    const int e = q * THREADS + threadIdx.x;
+    const int r = e / (W / 4), c = (e % (W / 4)) * 4;
+    float* to = dst + r * W + c;
+    if (k0 + r < K && c0 + c < ld) {
+      cp_async16(to, src + (long long)(k0 + r) * ld + c0 + c);
+    } else {
+      const float z = k0 + r < K ? 0.0f : Semiring<SR>::zero();
+      *reinterpret_cast<float4*>(to) = make_float4(z, z, z, z);
+    }
+  }
+}
+
+// acc[i][j] = acc[i][j] ⊕ (⊕_k xt[k][m0 + row(t, i)] ⊗ y[k][n0 + col(t, j)])
+// over k = 0..K.  smem holds RingShape::kSmemBytes; every thread of the CTA
+// must call it (it synchronises the CTA).
+template <int SR, int BM, int BN, int BK, int STAGES>
+__device__ __forceinline__ void fold_ring(float (&acc)[8][8], const float* __restrict__ xt,
+                                          long long ldx, const float* __restrict__ y,
+                                          long long ldy, int m0, int n0, int K, float* smem) {
+  using S = Semiring<SR>;
+  using R = RingShape<BM, BN, BK, STAGES>;
+  const int t = threadIdx.x;
+  const int ty = (t / (BN / 8)) * 4, tx = (t % (BN / 8)) * 4;
+  const int nk = (K + BK - 1) / BK;
+  auto stage = [&](int slot, int k0) {
+    float* s = smem + slot * R::kStageFloats;
+    ring_copy<SR, BM, BK, R::kThreads>(s, xt, ldx, m0, k0, K);
+    ring_copy<SR, BN, BK, R::kThreads>(s + BK * BM, y, ldy, n0, k0, K);
+  };
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) stage(s, s * BK);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();             // slice kt landed; slice kt - 1's slot is free
+    const int ahead = kt + STAGES - 1;
+    if (ahead < nk) stage(ahead % STAGES, ahead * BK);
+    cp_async_commit();
+    const float* sx = smem + (kt % STAGES) * R::kStageFloats;
+    const float* sy = sx + BK * BM;
+    // Unrolled by 8, not by BK: fully unrolled at BK = 32 the loop spills.
+#pragma unroll 8
+    for (int kk = 0; kk < BK; ++kk) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&sx[kk * BM + ty]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&sx[kk * BM + BM / 2 + ty]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&sy[kk * BN + tx]);
+      const float4 b1 = *reinterpret_cast<const float4*>(&sy[kk * BN + BN / 2 + tx]);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          acc[i][j] = S::add(acc[i][j], S::mul(a[i], b[j]));
+    }
+  }
+  cp_async_wait<0>();
 }
 
 }  // namespace repro_torch

@@ -20,7 +20,8 @@ closure, as in the JAX oracle.
   them.
 * :func:`fw_block_cuda` and :func:`fw_block_pred_cuda` launch the
   hand-written kernels (``csrc/fw_block.cu``) on float32 CUDA tensors,
-  B <= 256.
+  B <= 256: one thread-block cluster of ``CLUSTER`` CTAs a tile, laid out
+  by :func:`closure_plan` (also the fused round's closure plan).
 
 ``launches`` counts the calls of each wrapper that launched its kernel.
 """
@@ -28,7 +29,7 @@ closure, as in the JAX oracle.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -44,10 +45,52 @@ __all__ = [
     "fw_block_pred_cuda",
     "launches",
     "MAX_BLOCK",
+    "CLUSTER",
+    "ClosurePlan",
+    "closure_plan",
 ]
 
 # Largest tile the closure kernels take (csrc/fw_closure.cuh kCloseMaxB).
 MAX_BLOCK = 256
+# CTAs a closure cluster: the portable maximum (csrc/fw_closure.cuh kClusterMax).
+CLUSTER = 8
+# Pivots a cluster barrier, and the rows of one thread in registers at most
+# (csrc/fw_closure.cuh kCloseStep, kCloseMaxRows).
+STEP = 8
+MAX_ROWS = 32
+
+
+class ClosurePlan(NamedTuple):
+    """Launch plan of one tile closure (``csrc/fw_closure.cuh``): a cluster
+    of ``cluster`` CTAs of ``threads`` threads; CTA c owns rows
+    ``rows_of(c)``, R = ``rows`` values (and preds) a thread in registers;
+    ``shared_bytes`` of dynamic shared memory a CTA for the published rows
+    and columns of each group of ``STEP`` pivots."""
+
+    cluster: int
+    rows: int
+    threads: int
+    shared_bytes: int
+
+    def rows_of(self, c: int, b: int) -> range:
+        return range(min(b, c * self.rows), min(b, (c + 1) * self.rows))
+
+
+def closure_plan(b: int, pred: bool = False) -> ClosurePlan:
+    """The plan the kernels take for a B x B tile, 1 <= B <= ``MAX_BLOCK``:
+    ``CLUSTER`` CTAs, R = ceil(B / CLUSTER) rows each rounded up to a
+    multiple of ``STEP`` (so that the pivots of one cluster barrier lie in
+    one CTA; CTAs past the last row own none and still join every barrier),
+    one thread a column rounded up to a warp, and the slots of
+    ``close_smem_bytes``: old and stepped columns [3][STEP][32] floats, the
+    pivot-row coefficients [STEP][STEP], rows [2][STEP][B] floats and, with
+    preds, [2][STEP][B] int32."""
+    if not 1 <= b <= MAX_BLOCK:
+        raise ValueError(f"a closure takes tiles of 1 to {MAX_BLOCK} nodes, got B={b}")
+    rows = -(-b // (CLUSTER * STEP)) * STEP
+    threads = -(-b // 32) * 32
+    shared = 4 * (3 * STEP * MAX_ROWS + STEP * STEP + 2 * STEP * b * (2 if pred else 1))
+    return ClosurePlan(CLUSTER, rows, threads, shared)
 
 launches = {"fw_block": 0, "fw_block_pred": 0}
 
@@ -93,13 +136,14 @@ def _launch(name: str, d, p, semiring) -> Tuple[torch.Tensor, Optional[torch.Ten
     pz = None if p is None else torch.empty_like(p)
     from . import _build
 
+    plan = closure_plan(b, pred=p is not None)
     fn = _build.load("fw_block").fw_block_launch
-    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(d.device).cuda_stream
     err = fn(code, int(p is not None), d.data_ptr(), None if p is None else p.data_ptr(),
-             z.data_ptr(), None if pz is None else pz.data_ptr(), tiles, b, stream)
+             z.data_ptr(), None if pz is None else pz.data_ptr(), tiles, b, *plan, stream)
     if err:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
     launches[name] += 1

@@ -22,7 +22,10 @@ paths agree exactly.
   (``ops.backend``).
 
 ``rounds`` counts the calls of :func:`fw_round_cuda` that launched the
-kernel's round (three grids each).
+kernel's round (three grids each: the cluster closure ``fw_closure``,
+``fw_colpanel`` and ``fw_update``).  The wrapper computes the closure's
+launch plan (``fw_block.closure_plan``) and the row pitch :func:`pitch` of
+the two (G, B, Np) scratches the update reads.
 """
 
 from __future__ import annotations
@@ -34,12 +37,19 @@ import torch
 from repro_torch.core.semiring import SemiringLike, get_semiring
 
 from ._codes import semiring_code
-from .fw_block import MAX_BLOCK, fw_block_torch
+from .fw_block import MAX_BLOCK, closure_plan, fw_block_torch
 from .minplus import minplus_torch
 
-__all__ = ["fw_round", "fw_round_torch", "fw_round_cuda", "rounds"]
+__all__ = ["fw_round", "fw_round_torch", "fw_round_cuda", "rounds", "pitch"]
 
 rounds = 0
+
+
+def pitch(n: int) -> int:
+    """Row pitch Np of the col'^T and row-panel scratches: N rounded up to a
+    multiple of 32 floats, so that every row starts 16-byte aligned for the
+    update's 16-byte asynchronous copies whatever N is."""
+    return -(-n // 32) * 32
 
 
 def fw_round_torch(
@@ -85,15 +95,16 @@ def fw_round_cuda(
 
     fn = _build.load("fw_round").fw_round_launch
     fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4 + [
-        ctypes.c_int] * 4 + [ctypes.c_void_p]
+        ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    np_ = pitch(n)
     f32 = dict(dtype=torch.float32, device=d.device)
     apiv = torch.empty((g, b, b), **f32)
-    colp = torch.empty((g, n, b), **f32)
-    rowp = torch.empty((g, b, n), **f32)
+    colt = torch.empty((g, b, np_), **f32)
+    rowp = torch.empty((g, b, np_), **f32)
     stream = torch.cuda.current_stream(d.device).cuda_stream
     err = fn(code, int(d.dtype == torch.bfloat16), d.data_ptr(), apiv.data_ptr(),
-             colp.data_ptr(), rowp.data_ptr(), g, n, b, o, stream)
+             colt.data_ptr(), rowp.data_ptr(), g, n, b, o, np_, *closure_plan(b), stream)
     if err:
         raise RuntimeError(f"fw_round kernel launch failed: cudaError_t {err}")
     rounds += 1

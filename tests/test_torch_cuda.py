@@ -25,6 +25,10 @@ from repro_torch.kernels import row_close as rc
 
 pytestmark = pytest.mark.cuda
 
+# Tile sizes that exercise the cluster closure's layout (csrc/fw_closure.cuh,
+# 8 CTAs a tile): B < 8, B not a multiple of 8, one row a CTA, full width.
+CLOSURE_B = [1, 5, 8, 9, 31, 32, 33, 100, 255, 256]
+
 
 @pytest.fixture
 def cuda():
@@ -56,7 +60,8 @@ def test_kernel_matches_plain(cuda, semiring, b):
     assert _same(got, want)
 
 
-@pytest.mark.parametrize("n,b", [(7, 7), (100, 50), (384, 128)])
+@pytest.mark.parametrize("n,b", [(7, 7), (19, 19), (100, 50), (384, 128)]
+                         + [(2 * b, b) for b in CLOSURE_B])
 def test_kernel_matches_plain_ragged_tiles(cuda, n, b):
     h = torch.from_numpy(generate_np(np.random.default_rng(n), n).h).to(cuda)
     for o in range(0, n, b):
@@ -102,6 +107,77 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     )
     with pytest.raises(NotImplementedError):
         fr.fw_round_cuda(d, 0, block_size=32, semiring=custom)
+
+
+
+@pytest.mark.parametrize("b", [5, 33, 100, 256])
+def test_fused_round_closure_matches_plain_batched_and_bf16(cuda, b):
+    """fw_closure on a G = 3 stack of clusters, and with bf16 storage."""
+    rng = np.random.default_rng(b)
+    hs = torch.from_numpy(np.stack([generate(rng, 2 * b, "bottleneck") for _ in range(3)])).to(cuda)
+    got, want = _round_pair(hs, b, b, "bottleneck")
+    assert _same(got, want)
+    h = torch.from_numpy(generate_np(rng, 2 * b).h).to(cuda)
+    got, want = _round_pair(h.to(torch.bfloat16), b, b, "tropical")
+    assert got.dtype == torch.bfloat16 and _same(got.float(), want.float())
+
+
+@pytest.mark.parametrize("b", [9, 100, 255])
+def test_cluster_closures_negative_cycle_and_nan(cuda, b):
+    """A tropical negative cycle (step k rewrites row and column k, so every
+    step must read the old ones) and NaN, on a tile that is not a multiple
+    of the cluster."""
+    h = generate_np(np.random.default_rng(b), b, rho=30.0).h
+    h[2, 7], h[7, 2] = -9.0, 3.0
+    h[b - 2, b - 1] = np.nan
+    d = torch.from_numpy(h).to(cuda)
+    p = torch.arange(b, dtype=torch.int32, device=cuda).repeat(b, 1).t().contiguous()
+    got = fb.fw_block_pred_cuda(d, p)
+    want = fb.fw_block_pred_torch(d, p)
+    torch.cuda.synchronize()
+    assert bool((torch.diagonal(want[0]) < 0).any())
+    assert _same(got[0], want[0]) and torch.equal(got[1], want[1])
+    got = fb.fw_block_cuda(d)
+    torch.cuda.synchronize()
+    assert _same(got, fb.fw_block_torch(d))
+
+
+@pytest.mark.parametrize("b", [5, 100, 256])
+def test_closures_run_on_the_plans_cluster(cuda, b):
+    """Each closure records the cluster size the hardware gave its launch
+    (%cluster_nctarank); reading it back gives the plan's cluster, and
+    reading sets it to 0."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    fb_seen = _build.load("fw_block").fw_block_cluster_ctas
+    fb_seen.argtypes = [ctypes.c_int]
+    fr_seen = _build.load("fw_round").fw_round_cluster_ctas
+    d = torch.from_numpy(generate(np.random.default_rng(b), 2 * b, "tropical")).to(cuda)
+    p = init_pred(d[:b, :b]).contiguous()
+    fr.fw_round_cuda(d, 0, block_size=b)
+    fb.fw_block_cuda(d[:b, :b].contiguous())
+    fb.fw_block_pred_cuda(d[:b, :b].contiguous(), p)
+    torch.cuda.synchronize()
+    want = fb.closure_plan(b).cluster
+    assert (fr_seen(), fb_seen(0), fb_seen(1)) == (want, want, want)
+    assert (fr_seen(), fb_seen(0), fb_seen(1)) == (0, 0, 0)
+
+
+def test_solve_on_card_at_8191_matches_plain_solve(cuda):
+    """N = 8191 pads to 8192: the main path against the plain rounds on the card."""
+    from repro_torch.core.semiring import pad_to_multiple, unpad
+
+    n, b = 8191, 256
+    h = generate_np(np.random.default_rng(0), n, rho=2.0).h
+    before = fr.rounds
+    got = solve(h).dist
+    assert fr.rounds - before == 32
+    d = pad_to_multiple(torch.from_numpy(h).to(cuda), b)
+    for o in range(0, d.shape[0], b):
+        d = fr.fw_round_torch(d, o, block_size=b, semiring="tropical")
+    assert torch.equal(got, unpad(d, n))
 
 
 @pytest.mark.parametrize("n", [1, 100, 384])
@@ -168,7 +244,8 @@ def test_minplus_kernels_match_plain_batched_and_nan(cuda, kind):
 
 @pytest.mark.parametrize("pred", [False, True])
 @pytest.mark.parametrize("semiring", SEMIRINGS)
-@pytest.mark.parametrize("b,t", [(256, 1), (100, 3), (7, 2)])
+@pytest.mark.parametrize("b,t", [(256, 1), (100, 3), (7, 2)] + [
+    (b, 1 + 2 * (i % 2)) for i, b in enumerate(CLOSURE_B) if b not in (100, 256)])
 def test_fw_block_kernels_match_plain(cuda, pred, semiring, b, t):
     rng = np.random.default_rng(b + t)
     d = torch.stack([torch.from_numpy(generate(rng, b, semiring)) for _ in range(t)]).to(cuda)
@@ -213,6 +290,8 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda):
         fb.fw_block_cuda(torch.zeros((300, 300), device=cuda))
     with pytest.raises(ValueError):
         fb.fw_block_pred_cuda(torch.zeros((8, 8), device=cuda), torch.zeros((8, 8), dtype=torch.int32))
+    with pytest.raises(ValueError):
+        fb.fw_block_cuda(torch.zeros((0, 0), device=cuda))
 
 
 @pytest.mark.parametrize("options", [
