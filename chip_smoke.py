@@ -13,13 +13,18 @@ read just after:
 * the main path (fused blocked Floyd-Warshall, all defaults; ``fw_round``)
   at N = 8192 and N = 8191, checked against the plain solve and scipy's
   Dijkstra;
-* ``with_pred=True`` (``fw_block_pred``, ``minplus_argmin``) at N = 8192
-  and 8191: the same distances, the plain pred solve's predecessors, a
-  valid predecessor tree, and paths whose cost is Dijkstra's;
+* ``with_pred=True`` (``fw_block_pred``, ``minplus_pred``: the witness
+  kernel with the predecessor rule in its epilogue) at N = 8192 and 8191:
+  the same distances, the plain pred solve's predecessors, a valid
+  predecessor tree, and paths whose cost is Dijkstra's;
 * ``round_mode="split"`` without and with predecessors (``fw_block``,
-  ``minplus``; ``fw_block_pred``, ``minplus_argmin``) at N = 8192, the pred
+  ``minplus``; ``fw_block_pred``, ``minplus_pred``) at N = 8192, the pred
   one against the plain pred solve, and both pred rounds against the plain
-  pred solve on the card at N = 2048 as well.
+  pred solve on the card at N = 2048 as well;
+* every path again at B = 512 and 1024 (tiles above 256 nodes close on the
+  grid closure), dist equal to the B = 256 solve's and pred trees valid at
+  N = 8192, the pred rounds against the plain pred solve at N = 2048, and
+  the main solve at N = 16384, B = 512 against its B = 256 solve.
 
 It then drives the dynamic engine, ``repro_torch.DynamicAPSP``, at
 N = 8192 with and without predecessors through a stream of edge-update
@@ -29,10 +34,11 @@ re-solve; after every update ``dist`` equals a cold solve, the pred tree is
 valid and its paths cost Dijkstra's distances, and every ``row_close``
 launch is replayed through its plain version.
 
-It traces a solve without and one with predecessors with
-``torch.profiler``, holds every kernel against its plain version once more
-at the main path's shapes (and ``minplus`` / ``minplus_argmin`` at the
-rank-k shapes), times it there and prints
+It traces a solve of each path with ``torch.profiler`` (the pred traces
+must hold no gather row: the pred rule runs in ``minplus_pred``'s
+epilogue), holds every kernel against its plain version once more at the
+main path's shapes (and ``minplus`` / ``minplus_argmin`` at the rank-k
+shapes), times it there and prints
 one JSON line of kernel numbers: ``fw_round`` with its three grids' ms a
 round, and the three cluster closures (``fw_closure``, ``fw_block``,
 ``fw_block_pred``) with their ms a step and the cluster size that their
@@ -42,9 +48,12 @@ so the script exits non-zero; without a CUDA device, or without the repo's
 ``src/`` beside it, it exits non-zero before printing any result.
 
 ``python3 chip_smoke.py --times ROOT`` only times, as phase 4 does
-(``timings``): ``fw_round`` a round and a grid, ``fw_block`` and
-``fw_block_pred`` a tile (a wrapper call, and the kernel's device time in
-a traced solve), and the four solve paths at N = 8192, for the package
+(``timings``, ``product_times``): ``fw_round`` a round and a grid,
+``fw_block`` and ``fw_block_pred`` a tile (a wrapper call, and the
+kernel's device time in a traced solve), the product kernels at the
+rounds' shapes (a wrapper call, and each grid's device time), the pred
+solve's device rows, ``minplus.cu``'s ptxas report, and the four solve
+paths at N = 8192, for the package
 under ``ROOT/src`` (this tree, or another commit unpacked with ``git
 archive``), and prints them as one JSON line.
 Run it on two trees in turns, in one run on one card, to compare them.
@@ -53,6 +62,7 @@ Run it on two trees in turns, in one run on one card, to compare them.
 from __future__ import annotations
 
 import ctypes
+import importlib
 import json
 import math
 import re
@@ -80,12 +90,24 @@ SOLVE_PATHS = {"main N=8192": {}, "with_pred N=8192": {"with_pred": True},
                "split N=8192": {"round_mode": "split"},
                "split with_pred N=8192": {"round_mode": "split", "with_pred": True}}
 # The paths whose traced grids the kernels line reads (fw_round's grids,
-# fw_block_pred, fw_block).
-TRACED_PATHS = ("main N=8192", "with_pred N=8192", "split N=8192")
+# fw_block_pred, fw_block), and the split pred path, whose trace must hold
+# no gather row either.
+TRACED_PATHS = ("main N=8192", "with_pred N=8192", "split N=8192", "split with_pred N=8192")
+# Tiles above the cluster closure's 256 nodes (the grid closure): the
+# reference's own cells use 512 and 1024.
+LARGE_B = (512, 1024)
 
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+def kernel_module(name: str):
+    """The port's kernel submodule ``repro_torch.kernels.<name>``.  By module
+    path: ``repro_torch.kernels.fw_round`` (and ``.fw_block``, ``.minplus``)
+    is the ops function of that name, as in ``repro.kernels``, in trees that
+    bind ``repro.kernels``' names, and the submodule in older ones."""
+    return importlib.import_module(f"repro_torch.kernels.{name}")
 
 
 def check(cond: bool, what: str) -> None:
@@ -199,6 +221,59 @@ def grid_ms(per_kernel, kernel: str) -> float:
     return sum(ms for ms, _ in rows) / max(1, sum(c for _, c in rows))
 
 
+def device_ms(fn, reps: int = 10) -> float:
+    """Device ms of the grids one call of ``fn`` launches: CUDA events around
+    the call, recorded while a spin kernel (``torch.cuda._sleep``, about a
+    millisecond) still holds the card, so that the host's time to enqueue
+    the call is hidden; median of ``reps`` after a warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def product_times(h: torch.Tensor, b: int = 256):
+    """The product kernels at the blocked-FW shapes of an (N, N) state on
+    the card, pivot block at N/2: ``minplus`` (split round: full update,
+    row and column panels), ``minplus_argmin`` (pred round's stages 3 and 2)
+    and, in trees that have it, ``minplus_pred`` (the same stages with the
+    pred epilogue, stage 2 on strided panels as the round passes them).
+    Each shape: a wrapper call's ms (CUDA events, median of 10) and the
+    device ms of the grids it launches (``device_ms``)."""
+    from repro_torch.core import init_pred
+
+    mp = kernel_module("minplus")
+    n, o = h.shape[0], h.shape[0] // 2
+    col, row = h[:, o:o + b].contiguous(), h[o:o + b, :].contiguous()
+    piv = h[o:o + b, o:o + b].contiguous()
+    p = init_pred(h)
+    pcol, prow, ppiv = p[:, o:o + b], p[o:o + b, :], p[o:o + b, o:o + b].contiguous()
+    shapes = {
+        f"minplus full update {n}x{b} x {b}x{n} accumulate": lambda: mp.minplus_cuda(col, row, h),
+        f"minplus row panel {b}x{b} x {b}x{n}": lambda: mp.minplus_cuda(piv, row),
+        f"minplus column panel {n}x{b} x {b}x{b}": lambda: mp.minplus_cuda(col, piv),
+        f"minplus_argmin stage 3 {n}x{b} x {b}x{n} accumulate":
+            lambda: mp.minplus_argmin_cuda(col, row, h),
+        f"minplus_argmin stage 2 {n}x{b} x {b}x{b} accumulate":
+            lambda: mp.minplus_argmin_cuda(col, piv, col),
+    }
+    if hasattr(mp, "minplus_pred_cuda"):
+        shapes[f"minplus_pred stage 3 {n}x{b} x {b}x{n} accumulate"] = lambda: mp.minplus_pred_cuda(
+            col, row, pcol, prow, h, p, k_offset=o)
+        shapes[f"minplus_pred stage 2 {n}x{b} x {b}x{b} accumulate"] = lambda: mp.minplus_pred_cuda(
+            h[:, o:o + b], piv, pcol, ppiv, h[:, o:o + b], pcol, k_offset=o, j_offset=o)
+    return {label: {"ms": median_ms(fn, reps=10), "device_ms": device_ms(fn)}
+            for label, fn in shapes.items()}
+
+
 SASS_FUNC = re.compile(r"Function : (\S+)")
 SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
 
@@ -266,8 +341,8 @@ def timings(repro_torch, h: torch.Tensor, label: str = ""):
     path's median solve ms.  It uses only the wrappers and ``solve``, whose interface every
     tree of the port shares."""
     from repro_torch.core.semiring import pad_to_multiple
-    from repro_torch.kernels import fw_round as fr
 
+    fr = kernel_module("fw_round")
     n, b = h.shape[0], 256
     d = pad_to_multiple(h, b).clone()
     round_ms = []
@@ -289,9 +364,9 @@ def timings(repro_torch, h: torch.Tensor, label: str = ""):
 
 def times(root: Path) -> int:
     """``--times ROOT``: the kernel and solve times of the package under
-    ``ROOT/src`` at N = 8192, B = 256 (``timings``, and ``fw_block`` /
-    ``fw_block_pred`` a wrapper call on the pivot tile at N/2), as one JSON
-    line."""
+    ``ROOT/src`` at N = 8192, B = 256 (``timings``, ``product_times``, and
+    ``fw_block`` / ``fw_block_pred`` a wrapper call on the pivot tile at
+    N/2), as one JSON line."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -299,8 +374,8 @@ def times(root: Path) -> int:
     import repro_torch
     from repro_torch.core import init_pred
     from repro_torch.kernels import _build
-    from repro_torch.kernels import fw_block as fb
 
+    fb = kernel_module("fw_block")
     card = nvidia_smi("name,power.limit")
     _build.build(_build.sources())
     n, b = 8192, 256
@@ -321,6 +396,10 @@ def times(root: Path) -> int:
             "fw_block": grid_ms(got["traces"]["split N=8192"][0], "fw_block"),
             "fw_block_pred": grid_ms(got["traces"]["with_pred N=8192"][0], "fw_block_pred")},
         "solve_ms": got["solve_ms"],
+        "products": product_times(h),
+        "pred_solve_rows": {name[:90]: v
+                            for name, v in got["traces"]["with_pred N=8192"][0].items()},
+        "ptxas_minplus": _build.ptxas_report("minplus"),
     }))
     return 0
 
@@ -366,10 +445,8 @@ def drive_dynamic(dev, card: str, lane_rate: float, n: int = 8192):
 
     import repro_torch
     from repro_torch.core import path_cost, reconstruct_path, validate_tree
-    from repro_torch.kernels import fw_block as fb
-    from repro_torch.kernels import fw_round as fr
-    from repro_torch.kernels import minplus as mp
-    from repro_torch.kernels import row_close as rc
+    fb, fr = kernel_module("fw_block"), kernel_module("fw_round")
+    mp, rc = kernel_module("minplus"), kernel_module("row_close")
 
     g = repro_torch.generate_np(np.random.default_rng(0), n, rho=2.0 * 8192 / n)
     rng = np.random.default_rng(3)
@@ -401,7 +478,7 @@ def drive_dynamic(dev, card: str, lane_rate: float, n: int = 8192):
 
     def zero_counts():
         fr.rounds = 0
-        mp.launches.update(minplus=0, minplus_argmin=0)
+        mp.launches.update(dict.fromkeys(mp.launches, 0))
         fb.launches.update(fw_block=0, fw_block_pred=0)
         rc.launches["row_close"] = 0
 
@@ -594,11 +671,9 @@ def main() -> int:
         validate_tree,
     )
     from repro_torch.core.semiring import pad_pred_to_multiple, pad_to_multiple, unpad
-    from repro_torch.kernels import _build
-    from repro_torch.kernels import fw_block as fb
-    from repro_torch.kernels import fw_round as fr
-    from repro_torch.kernels import minplus as mp
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import _build, ops
+
+    fb, fr, mp = kernel_module("fw_block"), kernel_module("fw_round"), kernel_module("minplus")
 
     dev = torch.device("cuda")
 
@@ -617,7 +692,8 @@ def main() -> int:
     # The folds' hottest loops in the SASS: instructions a candidate (one FADD
     # a tropical candidate), the premise of the operations bound below, and
     # what the loop around it (a k slice: copies, barrier) adds.
-    for src_, k in (("fw_round", "fw_update<0,float>"), ("minplus", "minplus<0,true>")):
+    for src_, k in (("fw_round", "fw_update<0,float>"), ("minplus", "minplus<0,true>"),
+                    ("minplus", "minplus_argmin<0,true>"), ("minplus", "minplus_pred<0,true>")):
         loops = sass_loops(_build, src_, k)
         hot = loops[0]
         around = [lp for lp in loops if lp["start"] <= hot["start"] and lp["end"] >= hot["end"]
@@ -668,21 +744,30 @@ def main() -> int:
         d = torch.from_numpy(in_domain(rng, n_, "tropical")).to(dev)
         for o in range(0, n_, b):
             compare(f"N={n_} B={b} tropical", d, o, b)
+    # Tiles above 256 nodes: the grid closure (fw_closure_grid).
+    for b in (257,) + LARGE_B:
+        d = torch.from_numpy(in_domain(rng, 2 * b, "tropical")).to(dev)
+        compare(f"N={2 * b} B={b} tropical", d, b, b)
+        hs = np.stack([in_domain(rng, 2 * b, "bottleneck") for _ in range(3)])
+        compare(f"G=3 N={2 * b} B={b} bottleneck", torch.from_numpy(hs).to(dev), 0, b, "bottleneck")
+        compare(f"N={2 * b} B={b} bf16 tropical", d.to(torch.bfloat16), 0, b)
 
     # 2b. The slice-2 kernels against their plain versions on the card.  bf16
     # operands reach a kernel upcast, as ops sends them, and its value is
     # rounded once.
-    errs = dict.fromkeys(("minplus", "minplus_argmin", "fw_block", "fw_block_pred"), 0.0)
+    errs = dict.fromkeys(("minplus", "minplus_argmin", "minplus_pred", "fw_block",
+                          "fw_block_pred"), 0.0)
     pairs = {"minplus": (mp.minplus_cuda, mp.minplus_torch),
              "minplus_argmin": (mp.minplus_argmin_cuda, mp.minplus_argmin_torch),
+             "minplus_pred": (mp.minplus_pred_cuda, mp.minplus_pred_torch),
              "fw_block": (fb.fw_block_cuda, fb.fw_block_torch),
              "fw_block_pred": (fb.fw_block_pred_cuda, fb.fw_block_pred_torch)}
 
-    def compare_new(kind, label, *args, semiring="tropical"):
+    def compare_new(kind, label, *args, semiring="tropical", **kw):
         cuda_fn, plain_fn = pairs[kind]
-        up = [t.float() if t.is_floating_point() else t for t in args]
-        got = cuda_fn(*up, semiring=semiring)
-        want = plain_fn(*args, semiring=semiring)
+        up = [t.float() if t is not None and t.is_floating_point() else t for t in args]
+        got = cuda_fn(*up, semiring=semiring, **kw)
+        want = plain_fn(*args, semiring=semiring, **kw)
         torch.cuda.synchronize()
         got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
         value = got[0].to(args[0].dtype)
@@ -746,6 +831,38 @@ def main() -> int:
         compare_new("fw_block_pred", f"B={b} tropical, negative cycle and NaN", d, p)
         check(bool((torch.diagonal(fb.fw_block_pred_torch(d, p)[0]) < 0).any()),
               f"the B={b} negative-cycle tile has no negative diagonal")
+    # The grid closure (tiles above 256 nodes): a T = 3 stack, and one tile
+    # with a negative cycle and NaN.
+    for b in (257,) + LARGE_B:
+        d = torch.stack([torch.from_numpy(in_domain(rng, b, "reliability"))
+                         for _ in range(3)]).to(dev)
+        p = torch.stack([init_pred(x, "reliability") for x in d])
+        compare_new("fw_block", f"T=3 B={b} reliability", d, semiring="reliability")
+        compare_new("fw_block_pred", f"T=3 B={b} reliability", d, p, semiring="reliability")
+        d = torch.from_numpy(repro_torch.generate_np(rng, b, rho=30.0).h).to(dev)
+        p = init_pred(d)
+        d[2, 7], d[7, 2], d[b - 2, b - 1] = -9.0, 3.0, float("nan")
+        compare_new("fw_block", f"B={b} tropical, negative cycle and NaN", d)
+        compare_new("fw_block_pred", f"B={b} tropical, negative cycle and NaN", d, p)
+        check(bool((torch.diagonal(fb.fw_block_pred_torch(d, p)[0]) < 0).any()),
+              f"the B={b} negative-cycle tile has no negative diagonal")
+    # The pred epilogue: a G = 3 batch with ties, k_offset != j_offset (some
+    # winners are the output's own column), px a strided view, with and
+    # without the fallback.
+    for name in SEMIRING_NAMES:
+        x, y = operand(rng, (3, 300, 96), name, True), operand(rng, (3, 96, 260), name, True)
+        a = operand(rng, (3, 300, 260), name, True, density=0.2)
+        px = torch.randint(-1, 5000, (3, 300, 136), dtype=torch.int32, device=dev)[..., 17:113]
+        py = torch.randint(-1, 5000, (3, 96, 260), dtype=torch.int32, device=dev)
+        pa = torch.randint(-1, 5000, (3, 300, 260), dtype=torch.int32, device=dev)
+        for ko, jo in ((0, 0), (100, 40)):
+            tag = f"G=3 300x96 x 96x260 {name} ties k_offset={ko} j_offset={jo}"
+            compare_new("minplus_pred", tag, x, y, px, py, k_offset=ko, j_offset=jo,
+                        semiring=name)
+            compare_new("minplus_pred", tag + " accumulate", x, y, px, py, a, pa,
+                        k_offset=ko, j_offset=jo, semiring=name)
+            compare_new("minplus_pred", tag + " accumulate, no fallback", x, y, px, py, a,
+                        None, k_offset=ko, j_offset=jo, semiring=name)
 
     # 3. The main path: repro_torch.solve with all defaults.
     def plain_solve(h_dev, b=256):
@@ -798,20 +915,24 @@ def main() -> int:
     def counts():
         return {"fw_round": fr.rounds, **mp.launches, **fb.launches}
 
-    def drive(label, h, expect, **options):
+    kernel_of = {"fw_closure": "fw_round", "fw_block": "fw_block", "fw_block_pred": "fw_block_pred"}
+
+    def drive(label, h, expect, b=256, **options):
         fr.rounds = 0
-        mp.launches.update(minplus=0, minplus_argmin=0)
+        mp.launches.update(dict.fromkeys(mp.launches, 0))
         fb.launches.update(fw_block=0, fw_block_pred=0)
         clusters_seen(_build)
         t0 = time.perf_counter()
-        res = repro_torch.solve(h, **options)
+        res = repro_torch.solve(h, block_size=b, **options)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         seen = clusters_seen(_build)
         got = {k: v for k, v in counts().items() if v}
         check(got == expect, f"{label}: launches {got}, expected {expect}")
-        want = {k: fb.closure_plan(256, pred=k == "fw_block_pred").cluster if k in got else 0
-                for k in seen}
+        # The cluster closures record their cluster; the grid closure (B >
+        # 256) records none.
+        want = {k: fb.closure_plan(b, pred=k == "fw_block_pred").cluster
+                if b <= fb.MAX_BLOCK and kernel_of[k] in got else 0 for k in seen}
         check(seen == want, f"{label}: the closures ran on clusters of {seen}, expected {want}")
         path_clusters[label] = seen
         check(res.dist.is_cuda and (res.pred is None or (res.pred.is_cuda and
@@ -848,7 +969,7 @@ def main() -> int:
     for n in (8192, 8191):
         h_np, rounds, dist, src, dj = results[n]
         res = drive(f"with_pred N={n}", h_np,
-                    {"fw_block_pred": rounds, "minplus_argmin": 2 * rounds}, with_pred=True)
+                    {"fw_block_pred": rounds, "minplus_pred": 2 * rounds}, with_pred=True)
         check(same(res.dist, dist), f"with_pred N={n}: dist differs from the main path's")
         t0 = time.perf_counter()
         want_d, want_p = plain_pred_solve(torch.from_numpy(h_np).to(dev), 256, split=False)
@@ -886,7 +1007,7 @@ def main() -> int:
     for options, expect in (
         ({"round_mode": "split"}, {"fw_block": rounds, "minplus": 3 * rounds}),
         ({"round_mode": "split", "with_pred": True},
-         {"fw_block_pred": rounds, "minplus_argmin": 3 * rounds}),
+         {"fw_block_pred": rounds, "minplus_pred": 3 * rounds}),
     ):
         label = "split" + (" with_pred" if options.get("with_pred") else "") + " N=8192"
         res = drive(label, h_np, expect, **options)
@@ -912,6 +1033,70 @@ def main() -> int:
         print(f"N=2048 {'split' if split else 'fused'} with_pred: dist and pred equal to the "
               f"plain pred solve on the card")
 
+    # 3c. Tiles above 256 nodes (the grid closure) on every path: at N = 8192
+    # dist equals the B = 256 solve's (integer weights: every sum is exact),
+    # preds form a valid tree; at N = 2048, B = 512 the pred solves equal the
+    # plain pred solve on the card.  Then the reference's blocked_16k shape,
+    # N = 16384 at B = 512 (a 1 GiB f32 state), against its B = 256 solve.
+    h_np, rounds, dist = results[8192][:3]
+    h8 = torch.from_numpy(h_np).to(dev)
+    large = {}
+    for b in LARGE_B:
+        r_ = 8192 // b
+        for path, options in SOLVE_PATHS.items():
+            pred_, split_ = options.get("with_pred", False), "round_mode" in options
+            expect = ({"fw_block_pred": r_, "minplus_pred": (3 if split_ else 2) * r_} if pred_
+                      else {"fw_block": r_, "minplus": 3 * r_} if split_ else {"fw_round": r_})
+            label = f"{path} B={b}"
+            res = drive(label, h_np, expect, b=b, **options)
+            check(same(res.dist, dist), f"{label}: dist differs from the B=256 solve's")
+            check(res.pred is None or validate_tree(h_np, res.dist, res.pred),
+                  f"{label}: invalid tree")
+            print(f"{label}: dist equal to the B=256 solve's"
+                  f"{'; validate_tree holds' if res.pred is not None else ''}")
+            del res
+        # The grid closures' device time, from a traced solve of each path
+        # that runs one (a closure a round).
+        for path, grid in (("main N=8192", "fw_closure_grid"),
+                           ("with_pred N=8192", "fw_block_pred_grid"),
+                           ("split N=8192", "fw_block_grid")):
+            rows_, _, _ = device_breakdown(f"one solve, {path} B={b}",
+                                           lambda: repro_torch.solve(h8, block_size=b,
+                                                                     **SOLVE_PATHS[path]))
+            large[f"{grid} B={b} (device ms a tile)"] = grid_ms(rows_, grid)
+            large[f"{grid} B={b} (device us a step)"] = 1e3 * grid_ms(rows_, grid) / b
+            if path == "main N=8192":
+                large[f"fw_update B={b} (device ms a round)"] = grid_ms(rows_, "fw_update")
+        large[f"main N=8192 B={b}"] = median_ms(lambda: repro_torch.solve(h8, block_size=b))
+    for split in (False, True):
+        res = repro_torch.solve(h2, with_pred=True, block_size=512,
+                                round_mode="split" if split else "fused")
+        want_d, want_p = plain_pred_solve(h2, 512, split)
+        torch.cuda.synchronize()
+        check(same(res.dist, want_d) and torch.equal(res.pred, want_p),
+              f"N=2048 B=512 {'split' if split else 'fused'} pred solve differs from the plain one")
+        print(f"N=2048 B=512 {'split' if split else 'fused'} with_pred: dist and pred equal to "
+              f"the plain pred solve on the card")
+    del h8
+    t0 = time.perf_counter()
+    h16 = repro_torch.generate_np(np.random.default_rng(0), 16384, rho=2.0).h
+    h16 = torch.from_numpy(h16).to(dev)
+    print(f"N=16384 graph made and uploaded in {time.perf_counter() - t0:.1f} s")
+    for b in (256, 512):
+        fr.rounds = 0
+        large[f"main N=16384 B={b}"] = median_ms(lambda: repro_torch.solve(h16, block_size=b))
+        check(fr.rounds == 4 * 16384 // b, f"N=16384 B={b}: {fr.rounds} rounds in 4 solves")
+    d16 = repro_torch.solve(h16, block_size=512).dist
+    check(same(d16, repro_torch.solve(h16).dist), "N=16384: B=512 dist differs from B=256's")
+    del d16
+    rows16, busy16, window16 = device_breakdown(
+        "one solve, main N=16384 B=512", lambda: repro_torch.solve(h16, block_size=512))
+    large["closure us a step N=16384 B=512"] = 1e3 * grid_ms(rows16, "fw_closure_grid") / 512
+    large["busy share N=16384 B=512"] = busy16 / window16
+    del h16
+    print(f"N=16384: B=512 dist equal to the B=256 solve's; solve ms (median of 3) and the "
+          f"grid closure on {card}: {json.dumps(large)}")
+
     # 4. The times (fw_round a round, every solve path's median) and the
     # device breakdown of one main, pred and split solve (device rows only:
     # kernels, memcpy, memset), each grid counted against the path's rounds.
@@ -927,12 +1112,17 @@ def main() -> int:
         grids[kernel] = count
     grid_launches_per_round = sum(grids.values()) / rounds
     round_grid_ms = {k: grid_ms(per_kernel, k) for k in grids}
-    for path, per_round in (("with_pred N=8192", {"fw_block_pred": 1, "minplus_argmin": 2}),
+    for path, per_round in (("with_pred N=8192", {"fw_block_pred": 1, "minplus_pred": 2}),
                             ("split N=8192", {"fw_block": 1, "minplus": 3})):
         for kernel, k_ in per_round.items():
             count = grid_count(traces[path][0], kernel)
             check(count == k_ * rounds,
                   f"{kernel} ran {count} times in a {path} solve of {rounds} rounds")
+    # The pred rule runs in minplus_pred's epilogue: no gather row is left.
+    for path in ("with_pred N=8192", "split with_pred N=8192"):
+        gathers = [name for name in traces[path][0] if "gather" in name.lower()]
+        check(not gathers, f"{path}: the trace still holds gather rows {gathers}")
+    print("pred and split pred traces: no gather rows")
 
     # 6 (run here, before the kernels line). The dynamic engine at N = 8192.
     lane_rate = sms * FP32_LANES_PER_SM * clock_mhz * 1e6
@@ -975,6 +1165,10 @@ def main() -> int:
         "closure": {"grid": "fw_closure", "cluster": path_clusters["main N=8192"]["fw_closure"],
                     "ms": round_grid_ms["fw_closure"],
                     "ms_per_step": round_grid_ms["fw_closure"] / b},
+        "other_shapes_ms": {k_: v for k_, v in large.items()
+                            if not k_.startswith(("fw_block_grid", "fw_block_pred_grid",
+                                                  "busy"))},
+        "device_busy_share N=16384 B=512": large["busy share N=16384 B=512"],
         "device_busy_share": busy / window,
         "card": card,
     }
@@ -1018,6 +1212,19 @@ def main() -> int:
                            **{f"rank-k {n}x{k_} x {k_}x{n} accumulate": a_
                               for k_, a_ in rank_k.items()}},
     }
+    # minplus_pred, the witness kernel with the pred epilogue, at the pred
+    # round's stages 3 and 2 (stage 2 on strided panels of the state, as the
+    # round passes them).
+    p_dev = init_pred(h_dev)
+    pred_shapes = {
+        f"minplus_pred stage 3 {n}x{b} x {b}x{n} accumulate":
+            (col, row, p_dev[:, o:o + b], p_dev[o:o + b, :], h_dev, p_dev, o, 0),
+        f"minplus_pred stage 2 {n}x{b} x {b}x{b} accumulate":
+            (h_dev[:, o:o + b], piv, p_dev[:, o:o + b], ppiv, h_dev[:, o:o + b],
+             p_dev[:, o:o + b], o, o),
+    }
+    for lbl, (*a_, ko, jo) in pred_shapes.items():
+        compare_new("minplus_pred", f"{lbl} (main path's shape)", *a_, k_offset=ko, j_offset=jo)
     path_of = {"minplus": "split N=8192", "minplus_argmin": "with_pred N=8192",
                "fw_block": "split N=8192", "fw_block_pred": "with_pred N=8192"}
     sources = {"minplus": ("minplus.cu", "minplus.py:235"),
@@ -1025,6 +1232,13 @@ def main() -> int:
                "fw_block": ("fw_block.cu", "fw_block.py:34"),
                "fw_block_pred": ("fw_block.cu", "fw_block.py:67")}
     lines = [line]
+
+    def family(counts_, kind):
+        """Launches of a kernel's entry on a path: minplus_argmin's witness
+        kernel runs in its pred mode (minplus_pred) on the pred paths."""
+        names = (kind, "minplus_pred") if kind == "minplus_argmin" else (kind,)
+        return sum(counts_.get(k_, 0) for k_ in names)
+
     for kind, (args, cand, per_cand, nbytes, shape) in work.items():
         cuda_fn, plain_fn = pairs[kind]
         compare_new(kind, f"{shape} (main path's shape)", *args)
@@ -1039,8 +1253,11 @@ def main() -> int:
             "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{sources[kind][0]}",
             "replaces": f"src/repro/kernels/{sources[kind][1]}",
-            "launches": path_launches[path_of[kind]][kind],
-            "launches_by_path": {lbl: c[kind] for lbl, c in path_launches.items() if kind in c},
+            "launches": family(path_launches[path_of[kind]], kind),
+            "launches_by_path": {lbl: {k_: v for k_, v in c.items()
+                                       if k_ in (kind, "minplus_pred" if kind == "minplus_argmin"
+                                                 else kind)}
+                                 for lbl, c in path_launches.items() if family(c, kind)},
             "max_abs_err": errs[kind],
             "ms": k_ms,
             "plain_ms": p_ms,
@@ -1063,6 +1280,25 @@ def main() -> int:
             entry["cluster"] = path_clusters[path_of[kind]][kind]
             entry["device_ms"] = device
             entry["ms_per_step"] = device / b
+            # The grid closure (B > 256): its device time in the traced
+            # B = 512 and 1024 solves (phase 3c).
+            entry["other_shapes_ms"].update(
+                {k_: v for k_, v in large.items() if k_.startswith(f"{kind}_grid ")})
+        else:
+            # Device ms a launch of each product grid in the path's traced
+            # solve (the split solve's full updates and panels; the pred
+            # solve's stages 2 and 3 together), and of the k-major copy.
+            grids_ = (kind, "minplus_pred") if kind == "minplus_argmin" else (kind,)
+            entry["device_ms_in_solve"] = {
+                name.split("repro_torch::", 1)[1].split("(", 1)[0]: ms / count
+                for name, (ms, count) in traces[path_of[kind]][0].items()
+                if any(f"repro_torch::{g_}<" in name for g_ in grids_)
+                or "repro_torch::kmajor(" in name}
+        if kind == "minplus_argmin":
+            for lbl, (*a_, ko, jo) in pred_shapes.items():
+                entry["other_shapes_ms"][lbl] = median_ms(
+                    lambda: mp.minplus_pred_cuda(*a_, k_offset=ko, j_offset=jo), reps=10)
+            entry["bound_ms stage 2"] = per_cand * n * b * b / lane_rate * 1e3
         lines.append(entry)
         print(f"{kind} on {card}: {k_ms:.4f} ms at {shape} (median of 10), bound "
               f"{entry['bound_ms']:.4f} ms by {entry['bound_by']} (operations {ops_k:.4f} ms "

@@ -28,7 +28,13 @@ from .graphgen import (
     graph_stats,
     paper_corpus,
 )
-from .paths import path_cost, reconstruct_path, reconstruct_path_device, validate_tree
+from .paths import (
+    path_cost,
+    reconstruct_path,
+    reconstruct_path_device,
+    reconstruct_path_jit,
+    validate_tree,
+)
 from .semiring import (
     SEMIRINGS,
     Semiring,
@@ -45,7 +51,8 @@ __all__ = [
     "DynamicAPSP", "UpdateJournal", "domain_violations",
     "GraphSample", "generate", "generate_edge_updates", "generate_np",
     "graph_stats", "paper_corpus",
-    "reconstruct_path", "reconstruct_path_device", "path_cost", "validate_tree",
+    "reconstruct_path", "reconstruct_path_device", "reconstruct_path_jit", "path_cost",
+    "validate_tree",
     "Semiring", "SEMIRINGS", "get_semiring", "register_semiring",
     "semiring_eye", "pad_pred_to_multiple",
     "APSPError", "InputValidationError", "NegativeCycleError", "UpdateError",

@@ -9,6 +9,8 @@ Reconstruction walks backwards from j.  Two implementations:
 * :func:`reconstruct_path_device` — the counterpart of
   ``reconstruct_path_jit``: a fixed number of masked steps on ``pred``'s
   device with no host sync, returning a path padded with -1 and its length.
+  :func:`reconstruct_path_jit` is the same function under the reference's
+  name.
 
 :func:`path_cost` and :func:`validate_tree` check a solve on the host.
 ``spd_features`` comes with the GNN slice (ROADMAP.md queue 1, item 12).
@@ -26,6 +28,7 @@ from .semiring import SemiringLike, get_semiring
 __all__ = [
     "reconstruct_path",
     "reconstruct_path_device",
+    "reconstruct_path_jit",
     "path_cost",
     "validate_tree",
 ]
@@ -88,6 +91,19 @@ def reconstruct_path_device(
     path = torch.where(idx == 0, start, walk)
     path = torch.where(idx < length, path, torch.full_like(path, -1))
     return path.to(torch.int32), length.to(torch.int32)
+
+
+def reconstruct_path_jit(
+    pred: torch.Tensor, i: int, j: int, *, max_len: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``repro.core.reconstruct_path_jit`` under its own name: (path, length)
+    on ``pred``'s device, path padded with -1 to ``max_len``, length 0 when
+    j is unreachable.  It runs :func:`reconstruct_path_device`.
+
+    Divergence by design: for a path of exactly ``max_len + 1`` nodes the
+    reference returns length ``max_len + 1`` and a path without its source;
+    this one returns length 0, as the contract says (ROADMAP.md §3)."""
+    return reconstruct_path_device(pred, i, j, max_len=max_len)
 
 
 _NP_MUL = {torch.add: np.add, torch.minimum: np.minimum, torch.maximum: np.maximum,

@@ -20,6 +20,11 @@
 // loads and stores a step through one SM's share of L2 (fw_block_pred,
 // 2.5 ms a tile on an H100 at 700 W; PERF.md).
 //
+// Tiles above 256 nodes close on the grid closure (grid_close,
+// fw_closure.cuh) instead: fw_block_grid and fw_block_pred_grid, one
+// cooperative launch for the whole stack, the tiles in their global
+// outputs in L2, one grid barrier a pivot step.
+//
 // What bounds them now.  A closure is a chain of B dependent steps, so the
 // card's operations bound (B^3 candidates at 2 or 4 instructions each over
 // 132 SMs) is out of reach; each group of 8 pivots costs one cluster
@@ -57,8 +62,29 @@ fw_block_pred(const float* __restrict__ d, const int* __restrict__ p, float* __r
 }
 
 template <int SR>
+__global__ void __launch_bounds__(kGridThreads)
+fw_block_grid(const float* __restrict__ d, float* __restrict__ out, int b, int t, int* lines) {
+  grid_close<SR, false, float>(d, b, (long long)b * b, nullptr, out, nullptr, b, t, lines);
+}
+
+template <int SR>
+__global__ void __launch_bounds__(kGridThreads)
+fw_block_pred_grid(const float* __restrict__ d, const int* __restrict__ p,
+                   float* __restrict__ dout, int* __restrict__ pout, int b, int t, int* lines) {
+  grid_close<SR, true, float>(d, b, (long long)b * b, p, dout, pout, b, t, lines);
+}
+
+template <int SR>
 cudaError_t launch(bool pred, const float* d, const int* p, float* dout, int* pout, int t,
-                   int b, int cluster, int rows, int threads, int shared, cudaStream_t s) {
+                   int b, int cluster, int rows, int threads, int shared, int* lines,
+                   cudaStream_t s) {
+  if (b > kCloseMaxB) {
+    const long long nrows = (long long)t * b;
+    if (pred)
+      return launch_grid_close(fw_block_pred_grid<SR>, nrows, lines, s, d, p, dout, pout, b, t,
+                               lines);
+    return launch_grid_close(fw_block_grid<SR>, nrows, lines, s, d, dout, b, t, lines);
+  }
   if (pred)
     return launch_clusters(fw_block_pred<SR>, t, cluster, threads, shared, s, d, p, dout,
                            pout, b, rows);
@@ -70,24 +96,29 @@ cudaError_t launch(bool pred, const float* d, const int* p, float* dout, int* po
 // C interface for ctypes.  d and dout (t, b, b) contiguous float32; with
 // pred == 1, p and pout (t, b, b) contiguous int32 (otherwise null).  The
 // launch plan (cluster, rows, threads, shared) comes from the wrapper and is
-// checked here (close_plan_ok).  Returns a cudaError_t.
+// checked here: the cluster closure's (close_plan_ok) for b <= 256, the grid
+// closure's (grid_plan_ok) above, which also takes `lines`, int32 scratch of
+// grid_lines_words(b, t, pred) words (null for b <= 256).  Returns a
+// cudaError_t.
 extern "C" int fw_block_launch(int semiring, int pred, const void* d, const void* p, void* dout,
                                void* pout, int t, int b, int cluster, int rows, int threads,
-                               int shared, void* stream) {
+                               int shared, void* lines, void* stream) {
   using namespace repro_torch;
-  if (t < 1 || b < 1 || b > kCloseMaxB || (pred && (!p || !pout)) ||
-      !close_plan_ok(b, pred != 0, cluster, rows, threads, shared))
-    return cudaErrorInvalidValue;
+  const bool plan_ok = b <= kCloseMaxB
+                           ? close_plan_ok(b, pred != 0, cluster, rows, threads, shared)
+                           : grid_plan_ok(b, cluster, rows, threads, shared) && lines;
+  if (t < 1 || b < 1 || (pred && (!p || !pout)) || !plan_ok) return cudaErrorInvalidValue;
   const float* df = static_cast<const float*>(d);
   const int* pi = static_cast<const int*>(p);
   float* dof = static_cast<float*>(dout);
   int* poi = static_cast<int*>(pout);
+  int* li = static_cast<int*>(lines);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (semiring) {
-    case 0: return launch<0>(pred, df, pi, dof, poi, t, b, cluster, rows, threads, shared, s);
-    case 1: return launch<1>(pred, df, pi, dof, poi, t, b, cluster, rows, threads, shared, s);
-    case 2: return launch<2>(pred, df, pi, dof, poi, t, b, cluster, rows, threads, shared, s);
-    case 3: return launch<3>(pred, df, pi, dof, poi, t, b, cluster, rows, threads, shared, s);
+    case 0: return launch<0>(pred, df, pi, dof, poi, t, b, cluster, rows, threads, shared, li, s);
+    case 1: return launch<1>(pred, df, pi, dof, poi, t, b, cluster, rows, threads, shared, li, s);
+    case 2: return launch<2>(pred, df, pi, dof, poi, t, b, cluster, rows, threads, shared, li, s);
+    case 3: return launch<3>(pred, df, pi, dof, poi, t, b, cluster, rows, threads, shared, li, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -49,17 +49,24 @@
 // bound (B^3 candidates over 132 SMs) cannot be reached; B/Q super-steps
 // each cost one cluster barrier, one DSMEM read a published row and Q*R
 // candidates a thread.
+//
+// Tiles above kCloseMaxB nodes (the reference takes any B that divides the
+// padded N; its own cells use 512 and 1024) close on grid_close instead,
+// further down: one cooperative launch of at most one CTA an SM, the tile
+// in global memory (1 MiB at B = 512 and 4 MiB at 1024, twice that with
+// preds, so it stays in the 50 MB L2), one grid barrier a pivot step.
 #pragma once
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "semiring.cuh"
 
 namespace repro_torch {
 
-constexpr int kCloseMaxB = 256;
+constexpr int kCloseMaxB = 256;          // the largest tile of the cluster closure
 constexpr int kClusterMax = 8;          // the portable cluster size
 constexpr int kCloseMaxRows = 32;       // ceil(kCloseMaxB / kClusterMax)
 constexpr int kCloseStep = 8;           // pivots a cluster barrier
@@ -339,6 +346,171 @@ cudaError_t launch_clusters(void (*kernel)(Params...), int tiles, int cluster, i
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// The large-tile closure, for kCloseMaxB < B: the same B sequential steps
+// A <- A ⊕ A[:, k] ⊗ A[k, :], each reading the old row and column k, as the
+// JAX step does (src/repro/kernels/fw_block.py:79-91), so its bits are the
+// plain version's under negative cycles and NaN too.
+//
+// Layout.  One cooperative launch (co-resident CTAs, at most one an SM) of
+// kGridThreads threads a CTA closes `tiles` tiles of B x B in place in
+// their f32 outputs: CTA c owns rows c, c + C, ... of the stacked tiles
+// (tile t's row r is row t*B + r), thread j of it columns j, j + kGridThreads,
+// ..., the same elements at every step, so an element is only ever read and
+// written by its own thread.  The old row and column of pivot k live in a
+// double-buffered scratch ("lines"): the thread that finishes element
+// (k+1, c) at step k writes it to row line k+1, the one that finishes
+// (r, k+1) to column line k+1, and one grid barrier later step k+1 reads
+// them.  A line is rewritten two steps after it was read, with a barrier
+// between, so one barrier a step suffices.
+//
+// What bounds it.  A chain of B steps, each one grid barrier (an atomic
+// arrival and a spin on one counter in L2) and one pass over the tile
+// through L2: the card-wide operations bound is out of reach, as for the
+// cluster closure.  PERF.md has its time a step at B = 512 and 1024.
+constexpr int kGridThreads = 512;
+
+// The scratch of grid_close in 4-byte words: the barrier counter (4 words,
+// reset by the launch), row lines [tiles][2][b], column lines [tiles][2][b]
+// and, with preds, pred row lines [tiles][2][b].
+__host__ __device__ constexpr long long grid_lines_words(int b, int tiles, bool pred) {
+  return 4 + 2LL * tiles * b * (pred ? 3 : 2);
+}
+
+// The launch plan (kernels/fw_block.py closure_launch) that the grid
+// closure runs: no cluster (0), no rows in registers (0), kGridThreads
+// threads, no dynamic shared memory.
+__host__ __device__ inline bool grid_plan_ok(int b, int cluster, int rows, int threads,
+                                             int shared) {
+  return b > kCloseMaxB && cluster == 0 && rows == 0 && threads == kGridThreads && shared == 0;
+}
+
+__device__ __forceinline__ unsigned ld_acquire_gpu(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// Every CTA of the grid meets here (a cooperative launch makes them
+// co-resident).  The counter starts at 0 and counts arrivals, so barrier
+// number `phase` (1, 2, ...) waits for phase * gridDim.x of them.  The CTA
+// barrier orders its threads' writes before thread 0's fence and arrival;
+// the acquire load and the second CTA barrier order the other CTAs' writes
+// before its threads' reads.
+__device__ __forceinline__ void grid_barrier(unsigned* count, unsigned phase) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(count, 1u);
+    const unsigned target = phase * gridDim.x;
+    while (ld_acquire_gpu(count) < target) {
+    }
+  }
+  __syncthreads();
+}
+
+// Close `tiles` tiles, tile t b x b at d + t * tstride (row stride ld,
+// storage T), with int32 preds at pg + t*b*b (row stride b) when PRED.
+// Writes the closed tiles to out (tiles x b x b, contiguous), rounded
+// through the storage type, and the preds to pout.  lines holds
+// grid_lines_words(b, tiles, PRED) words, the counter at 0 at launch.
+// Every thread of the grid must call it.
+template <int SR, bool PRED, class T>
+__device__ __forceinline__ void grid_close(const T* __restrict__ d, long long ld,
+                                           long long tstride, const int* __restrict__ pg,
+                                           float* __restrict__ out, int* __restrict__ pout,
+                                           int b, int tiles, int* lines) {
+  unsigned* bar = reinterpret_cast<unsigned*>(lines);
+  float* rowl = reinterpret_cast<float*>(lines + 4);               // [tiles][2][b]
+  float* coll = rowl + 2LL * tiles * b;                            // [tiles][2][b]
+  int* prowl = reinterpret_cast<int*>(coll + 2LL * tiles * b);     // [tiles][2][b], PRED
+  const long long nrows = (long long)tiles * b, bb = (long long)b * b;
+  unsigned phase = 0;
+  for (long long R = blockIdx.x; R < nrows; R += gridDim.x) {
+    const long long t = R / b;
+    const int r = static_cast<int>(R - t * b);
+    for (int c = threadIdx.x; c < b; c += blockDim.x) {
+      const long long e = t * bb + (long long)r * b + c;
+      const float v = Storage<T>::load(d[t * tstride + r * ld + c]);
+      out[e] = v;
+      if (r == 0) rowl[2 * t * b + c] = v;
+      if (c == 0) coll[2 * t * b + r] = v;
+      if constexpr (PRED) {
+        const int pv = pg[e];
+        pout[e] = pv;
+        if (r == 0) prowl[2 * t * b + c] = pv;
+      }
+    }
+  }
+  grid_barrier(bar, ++phase);
+  for (int k = 0; k < b; ++k) {
+    const int cur = k & 1, nxt = cur ^ 1;
+    for (long long R = blockIdx.x; R < nrows; R += gridDim.x) {
+      const long long t = R / b;
+      const int r = static_cast<int>(R - t * b);
+      const long long line = (2 * t + cur) * b, next = (2 * t + nxt) * b;
+      const float a = __ldcg(&coll[line + r]);
+      float* orow = out + t * bb + (long long)r * b;
+      int* prow = PRED ? pout + t * bb + (long long)r * b : nullptr;
+      for (int c = threadIdx.x; c < b; c += blockDim.x) {
+        const float old = orow[c];
+        float x = old;
+        int px = 0;
+        if constexpr (PRED) {
+          px = prow[c];
+          const int op = px;
+          relax<SR, true>(x, px, a, __ldcg(&rowl[line + c]), __ldcg(&prowl[line + c]));
+          if (px != op) prow[c] = px;
+        } else {
+          relax<SR, false>(x, px, a, __ldcg(&rowl[line + c]), 0);
+        }
+        if (__float_as_uint(x) != __float_as_uint(old)) orow[c] = x;
+        if (r == k + 1) {
+          rowl[next + c] = x;
+          if constexpr (PRED) prowl[next + c] = px;
+        }
+        if (c == k + 1) coll[next + r] = x;
+      }
+    }
+    if (k + 1 < b) grid_barrier(bar, ++phase);
+  }
+  if constexpr (!std::is_same<T, float>::value) {
+    // Each element is its own thread's: no barrier before the rounding.
+    for (long long R = blockIdx.x; R < nrows; R += gridDim.x)
+      for (int c = threadIdx.x; c < b; c += blockDim.x) {
+        float* o = out + R * b + c;
+        *o = Storage<T>::round(*o);
+      }
+  }
+}
+
+// Launch `kernel` (which runs grid_close over `rows` = tiles * b rows) as
+// one cooperative grid of min(SMs, rows) CTAs of kGridThreads, after
+// setting the barrier counter at the head of `lines` to 0.
+template <class... Params, class... Args>
+cudaError_t launch_grid_close(void (*kernel)(Params...), long long rows, int* lines,
+                              cudaStream_t s, Args... args) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kGridThreads, 0);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1 || sms < 1) return cudaErrorInvalidConfiguration;
+  if ((err = cudaMemsetAsync(lines, 0, sizeof(unsigned), s)) != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(rows < sms ? rows : sms));
+  cfg.blockDim = dim3(kGridThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 

@@ -23,6 +23,9 @@
 //      tile in the cluster's registers, one cluster barrier for each 8
 //      pivots.  It replaces a one-CTA closure (0.74 ms a round at B = 256 on an H100,
 //      a quarter of the solve) that ran while 131 SMs waited.
+//      Above 256 nodes, fw_closure_grid closes the pivots instead: one
+//      cooperative launch of the grid closure (grid_close, fw_closure.cuh),
+//      the tile in global memory in L2, one grid barrier a pivot step.
 //   2. fw_colpanel: col' with the tiled fold (fold_tile) in 64 x 64 tiles,
 //      (B/64) * (N/64) CTAs (512 at N = 8192, B = 256, against 128 before),
 //      written transposed through shared memory into a (G, B, Np) f32
@@ -74,6 +77,14 @@ fw_closure(const T* __restrict__ d, float* __restrict__ apiv, int n, int b, int 
   cluster_close<SR, false, T>(d + g * n * n + (long long)o * n + o, n, nullptr,
                               apiv + g * b * b, nullptr, b, rows,
                               reinterpret_cast<float*>(smem4));
+}
+
+template <int SR, class T>
+__global__ void __launch_bounds__(kGridThreads)
+fw_closure_grid(const T* __restrict__ d, float* __restrict__ apiv, int n, int b, int o, int g,
+                int* lines) {
+  grid_close<SR, false, T>(d + (long long)o * n + o, n, (long long)n * n, nullptr, apiv,
+                           nullptr, b, g, lines);
 }
 
 template <int SR, class T>
@@ -160,10 +171,13 @@ struct ClosePlan {
 
 template <int SR, class T>
 cudaError_t launch_round(T* d, float* apiv, float* colt, float* rowp, int g, int n, int b,
-                         int o, int np, ClosePlan plan, cudaStream_t s) {
-  cudaError_t err = launch_clusters(fw_closure<SR, T>, g, plan.cluster, plan.threads,
-                                    plan.shared, s, static_cast<const T*>(d), apiv, n, b, o,
-                                    plan.rows);
+                         int o, int np, ClosePlan plan, int* lines, cudaStream_t s) {
+  cudaError_t err =
+      b > kCloseMaxB
+          ? launch_grid_close(fw_closure_grid<SR, T>, (long long)g * b, lines, s,
+                              static_cast<const T*>(d), apiv, n, b, o, g, lines)
+          : launch_clusters(fw_closure<SR, T>, g, plan.cluster, plan.threads, plan.shared, s,
+                            static_cast<const T*>(d), apiv, n, b, o, plan.rows);
   if (err != cudaSuccess) return err;
   const dim3 panel((b + PN - 1) / PN, (n + PM - 1) / PM, g);
   fw_colpanel<SR, T><<<panel, Panel::kThreads, 0, s>>>(d, apiv, colt, rowp, n, b, o, np);
@@ -178,15 +192,15 @@ cudaError_t launch_round(T* d, float* apiv, float* colt, float* rowp, int g, int
 
 template <class T>
 cudaError_t dispatch(int semiring, void* d, void* apiv, void* colt, void* rowp, int g, int n,
-                     int b, int o, int np, ClosePlan plan, cudaStream_t s) {
+                     int b, int o, int np, ClosePlan plan, int* li, cudaStream_t s) {
   T* dd = static_cast<T*>(d);
   float *a = static_cast<float*>(apiv), *c = static_cast<float*>(colt),
         *r = static_cast<float*>(rowp);
   switch (semiring) {
-    case 0: return launch_round<0, T>(dd, a, c, r, g, n, b, o, np, plan, s);
-    case 1: return launch_round<1, T>(dd, a, c, r, g, n, b, o, np, plan, s);
-    case 2: return launch_round<2, T>(dd, a, c, r, g, n, b, o, np, plan, s);
-    case 3: return launch_round<3, T>(dd, a, c, r, g, n, b, o, np, plan, s);
+    case 0: return launch_round<0, T>(dd, a, c, r, g, n, b, o, np, plan, li, s);
+    case 1: return launch_round<1, T>(dd, a, c, r, g, n, b, o, np, plan, li, s);
+    case 2: return launch_round<2, T>(dd, a, c, r, g, n, b, o, np, plan, li, s);
+    case 3: return launch_round<3, T>(dd, a, c, r, g, n, b, o, np, plan, li, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -197,19 +211,24 @@ cudaError_t dispatch(int semiring, void* d, void* apiv, void* colt, void* rowp, 
 // (bf16 == 0) or bf16 (bf16 == 1); apiv (g, b, b), colt (g, b, np) and rowp
 // (g, b, np) are float32 scratch, np a multiple of 32 that is >= n.  The
 // closure's launch plan (cluster, rows, threads, shared) comes from the
-// wrapper and is checked here (close_plan_ok).  Returns a cudaError_t.
+// wrapper and is checked here: the cluster closure's (close_plan_ok) for
+// b <= 256, the grid closure's (grid_plan_ok) above, which also takes
+// `lines`, int32 scratch of grid_lines_words(b, g, false) words (null for
+// b <= 256).  Returns a cudaError_t.
 extern "C" int fw_round_launch(int semiring, int bf16, void* d, void* apiv, void* colt,
                                void* rowp, int g, int n, int b, int o, int np, int cluster,
-                               int rows, int threads, int shared, void* stream) {
+                               int rows, int threads, int shared, void* lines, void* stream) {
   using namespace repro_torch;
-  if (g < 1 || n < 1 || b < 1 || b > kCloseMaxB || n % b != 0 || o < 0 || o % b != 0 ||
-      o >= n || np < n || np % 32 != 0 ||
-      !close_plan_ok(b, false, cluster, rows, threads, shared))
+  const bool plan_ok = b <= kCloseMaxB ? close_plan_ok(b, false, cluster, rows, threads, shared)
+                                       : grid_plan_ok(b, cluster, rows, threads, shared) && lines;
+  if (g < 1 || n < 1 || b < 1 || n % b != 0 || o < 0 || o % b != 0 || o >= n || np < n ||
+      np % 32 != 0 || !plan_ok)
     return cudaErrorInvalidValue;
   const ClosePlan plan{cluster, rows, threads, shared};
+  int* li = static_cast<int*>(lines);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? dispatch<__nv_bfloat16>(semiring, d, apiv, colt, rowp, g, n, b, o, np, plan, s)
-              : dispatch<float>(semiring, d, apiv, colt, rowp, g, n, b, o, np, plan, s);
+  return bf16 ? dispatch<__nv_bfloat16>(semiring, d, apiv, colt, rowp, g, n, b, o, np, plan, li, s)
+              : dispatch<float>(semiring, d, apiv, colt, rowp, g, n, b, o, np, plan, li, s);
 }
 
 // The cluster size the latest fw_closure launch ran on, read from the card

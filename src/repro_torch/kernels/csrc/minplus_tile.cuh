@@ -1,4 +1,7 @@
-// The tiled ⊕⊗ fold shared by the port's kernels: one CTA folds
+// The tiled ⊕⊗ folds shared by the port's kernels.  fold_tile and
+// fold_tile_argmin (fw_colpanel, row_close) stage each k slice with scalar
+// loads; fold_ring (fw_update, and every product of minplus.cu) fills a
+// cp.async ring of k-major slices, further down.  One CTA folds
 //   acc[i][j] = acc[i][j] ⊕ (⊕_k x[i][k] ⊗ y[k][j])
 // over k = 0..K into a BM x BN output tile held as TM x TN register
 // micro-tiles, one per thread, with k staged through shared memory BK at a
@@ -168,28 +171,32 @@ __device__ __forceinline__ void fold_tile_argmin(
   }
 }
 
-// The pipelined fold of fw_round's update (fw_update; minplus, minplus_argmin
-// and row_close keep fold_tile for now).  Both operands arrive as k-major
-// rows, so a k slice of either is BK straight row segments: xt (K x M, the
-// left operand transposed, row pitch ldx) and y (K x N, row pitch ldy).
-// Each row is 16-byte aligned (base and pitch a multiple of 4 floats) and
-// readable up to its pitch.  A ring of STAGES shared-memory slices is
-// filled by 16-byte cp.async copies, STAGES - 1 slices ahead of the fold,
-// with one CTA barrier a slice; fold_tile instead stages each slice with
-// scalar loads and a transposing store, and waits for them.
+// The pipelined fold (fw_round's fw_update; minplus, minplus_argmin and
+// minplus_pred in minplus.cu).  Both operands arrive as k-major rows, so a
+// k slice of either is BK straight row segments: xt (K x M, the left
+// operand transposed, row pitch ldx) and y (K x N, row pitch ldy).  Each
+// row is 16-byte aligned (base and pitch a multiple of 4 floats), and a row
+// is read up to its column limit (nx, ny), a multiple of 4 that is at most
+// the pitch.  A ring of STAGES shared-memory slices is filled by 16-byte
+// cp.async copies, STAGES - 1 slices ahead of the fold, with one CTA barrier
+// a slice; fold_tile instead stages each slice with scalar loads and a
+// transposing store, and waits for them.  fold_tile and fold_tile_argmin
+// stay for fw_colpanel and row_close only.
 //
-// Thread t holds an 8 x 8 micro-tile as two runs of four rows (BM/2 apart)
-// by two runs of four columns (BN/2 apart), so the four 16-byte shared reads
-// of a k step touch consecutive addresses across the warp (no bank
-// conflicts).  Rows k >= K are staged as the semiring zero, which adds
-// nothing; columns past the pitch are staged as 0 and never stored.
-template <int BM, int BN, int BK, int STAGES>
+// Thread t holds an 8 x TN micro-tile (TN = 8 or 4) as two runs of four rows
+// (BM/2 apart) by two runs of four columns (BN/2 apart; one run when TN =
+// 4), so the 16-byte shared reads of a k step touch consecutive addresses
+// across the warp (no bank conflicts).  Rows k >= K are staged as the
+// semiring zero, which adds nothing to a value fold and which the witness
+// fold skips; columns past the limit are staged as 0 and never stored.
+template <int BM, int BN, int BK, int STAGES, int TN = 8>
 struct RingShape {
-  static constexpr int TM = 8, TN = 8;
+  static constexpr int TM = 8;
   static constexpr int kThreads = (BM / TM) * (BN / TN);
   static constexpr int kStageFloats = BK * (BM + BN);
   static constexpr int kSmemBytes = STAGES * kStageFloats * 4;
-  static_assert(BM % 8 == 0 && BN % 8 == 0 && STAGES >= 2, "ring tile shape");
+  static_assert(BM % 8 == 0 && BN % 8 == 0 && STAGES >= 2 && (TN == 8 || TN == 4),
+                "ring tile shape");
   // Output coordinates of acc[i][j] for thread t: row m0 + row(t, i),
   // column n0 + col(t, j).
   static __device__ __forceinline__ int row(int t, int i) {
@@ -214,10 +221,11 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
-// Rows k0..k0+BK of src (pitch ld, W columns from c0) into dst [BK][W].
+// Rows k0..k0+BK of src (pitch ld, W columns from c0, read below the column
+// limit nc) into dst [BK][W].
 template <int SR, int W, int BK, int THREADS>
 __device__ __forceinline__ void ring_copy(float* dst, const float* __restrict__ src,
-                                          long long ld, int c0, int k0, int K) {
+                                          long long ld, long long nc, int c0, int k0, int K) {
   constexpr int kChunks = BK * W / 4;
   static_assert(kChunks % THREADS == 0, "whole chunks a thread");
 #pragma unroll
@@ -225,7 +233,7 @@ __device__ __forceinline__ void ring_copy(float* dst, const float* __restrict__ 
     const int e = q * THREADS + threadIdx.x;
     const int r = e / (W / 4), c = (e % (W / 4)) * 4;
     float* to = dst + r * W + c;
-    if (k0 + r < K && c0 + c < ld) {
+    if (k0 + r < K && c0 + c < nc) {
       cp_async16(to, src + (long long)(k0 + r) * ld + c0 + c);
     } else {
       const float z = k0 + r < K ? 0.0f : Semiring<SR>::zero();
@@ -235,21 +243,28 @@ __device__ __forceinline__ void ring_copy(float* dst, const float* __restrict__ 
 }
 
 // acc[i][j] = acc[i][j] ⊕ (⊕_k xt[k][m0 + row(t, i)] ⊗ y[k][n0 + col(t, j)])
-// over k = 0..K.  smem holds RingShape::kSmemBytes; every thread of the CTA
-// must call it (it synchronises the CTA).
-template <int SR, int BM, int BN, int BK, int STAGES>
-__device__ __forceinline__ void fold_ring(float (&acc)[8][8], const float* __restrict__ xt,
-                                          long long ldx, const float* __restrict__ y,
-                                          long long ldy, int m0, int n0, int K, float* smem) {
+// over k = 0..K.  With TRACK, the witness fold instead: in ascending k, a
+// candidate that strictly improves (Semiring::better) replaces acc[i][j]
+// and sets idx[i][j] to its k, so ties keep the smallest k and a NaN
+// candidate never improves; idx is untouched where nothing improved, and
+// padded k (>= K) is never a candidate.  Without TRACK, idx is not used.
+// smem holds RingShape::kSmemBytes; every thread of the CTA must call it
+// (it synchronises the CTA).
+template <int SR, int BM, int BN, int BK, int STAGES, int TN, bool TRACK>
+__device__ __forceinline__ void fold_ring(float (&acc)[8][TN], int (&idx)[8][TN],
+                                          const float* __restrict__ xt, long long ldx,
+                                          long long nx, const float* __restrict__ y,
+                                          long long ldy, long long ny, int m0, int n0, int K,
+                                          float* smem) {
   using S = Semiring<SR>;
-  using R = RingShape<BM, BN, BK, STAGES>;
+  using R = RingShape<BM, BN, BK, STAGES, TN>;
   const int t = threadIdx.x;
-  const int ty = (t / (BN / 8)) * 4, tx = (t % (BN / 8)) * 4;
+  const int ty = (t / (BN / TN)) * 4, tx = (t % (BN / TN)) * 4;
   const int nk = (K + BK - 1) / BK;
   auto stage = [&](int slot, int k0) {
     float* s = smem + slot * R::kStageFloats;
-    ring_copy<SR, BM, BK, R::kThreads>(s, xt, ldx, m0, k0, K);
-    ring_copy<SR, BN, BK, R::kThreads>(s + BK * BM, y, ldy, n0, k0, K);
+    ring_copy<SR, BM, BK, R::kThreads>(s, xt, ldx, nx, m0, k0, K);
+    ring_copy<SR, BN, BK, R::kThreads>(s + BK * BM, y, ldy, ny, n0, k0, K);
   };
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
@@ -264,23 +279,50 @@ __device__ __forceinline__ void fold_ring(float (&acc)[8][8], const float* __res
     cp_async_commit();
     const float* sx = smem + (kt % STAGES) * R::kStageFloats;
     const float* sy = sx + BK * BM;
-    // Unrolled by 8, not by BK: fully unrolled at BK = 32 the loop spills.
-#pragma unroll 8
-    for (int kk = 0; kk < BK; ++kk) {
+    const int k0 = kt * BK;
+    auto fold_step = [&](int kk) {
       const float4 a0 = *reinterpret_cast<const float4*>(&sx[kk * BM + ty]);
       const float4 a1 = *reinterpret_cast<const float4*>(&sx[kk * BM + BM / 2 + ty]);
       const float4 b0 = *reinterpret_cast<const float4*>(&sy[kk * BN + tx]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&sy[kk * BN + BN / 2 + tx]);
+      float4 b1 = b0;
+      if constexpr (TN == 8) b1 = *reinterpret_cast<const float4*>(&sy[kk * BN + BN / 2 + tx]);
       const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
       const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
       for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-          acc[i][j] = S::add(acc[i][j], S::mul(a[i], b[j]));
+        for (int j = 0; j < TN; ++j) {
+          if constexpr (TRACK) {
+            const float c = S::mul(a[i], b[j]);
+            if (S::better(c, acc[i][j])) {
+              acc[i][j] = c;
+              idx[i][j] = k0 + kk;
+            }
+          } else {
+            acc[i][j] = S::add(acc[i][j], S::mul(a[i], b[j]));
+          }
+        }
+    };
+    if (!TRACK || k0 + BK <= K) {
+      // Unrolled by 8, not by BK: fully unrolled at BK = 32 the loop spills.
+#pragma unroll 8
+      for (int kk = 0; kk < BK; ++kk) fold_step(kk);
+    } else {
+      // The witness fold's last, partial slice: padded k is no candidate.
+      for (int kk = 0; kk < K - k0; ++kk) fold_step(kk);
     }
   }
   cp_async_wait<0>();
+}
+
+// The value fold of fw_update: both operands read up to their pitch.
+template <int SR, int BM, int BN, int BK, int STAGES>
+__device__ __forceinline__ void fold_ring(float (&acc)[8][8], const float* __restrict__ xt,
+                                          long long ldx, const float* __restrict__ y,
+                                          long long ldy, int m0, int n0, int K, float* smem) {
+  int unused[8][8];
+  fold_ring<SR, BM, BN, BK, STAGES, 8, false>(acc, unused, xt, ldx, ldx, y, ldy, ldy, m0, n0,
+                                              K, smem);
 }
 
 }  // namespace repro_torch

@@ -13,8 +13,8 @@
 // on the host; Y is D itself.  The TPU kernel got the same gather from
 // scalar prefetch into its BlockSpec index maps.
 //
-// Everything else is the minplus fold (fold_tile / fold_tile_argmin, the
-// same tiles as minplus.cu): one thread folds each output element over k in
+// Everything else is the staged fold (fold_tile / fold_tile_argmin, with
+// the tiles minplus.cu had before it moved onto the cp.async ring): one thread folds each output element over k in
 // ascending order with the strict Semiring::better, so ties keep the
 // smallest k and a NaN candidate never improves, the port's witness rule.
 // A repeated row id computes the same panel row twice; the caller's

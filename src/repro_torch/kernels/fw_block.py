@@ -19,9 +19,12 @@ closure, as in the JAX oracle.
   tensors, and the tests and ``chip_smoke.py`` hold the kernels against
   them.
 * :func:`fw_block_cuda` and :func:`fw_block_pred_cuda` launch the
-  hand-written kernels (``csrc/fw_block.cu``) on float32 CUDA tensors,
-  B <= 256: one thread-block cluster of ``CLUSTER`` CTAs a tile, laid out
-  by :func:`closure_plan` (also the fused round's closure plan).
+  hand-written kernels (``csrc/fw_block.cu``) on float32 CUDA tensors, any
+  B: up to ``MAX_BLOCK`` one thread-block cluster of ``CLUSTER`` CTAs a
+  tile, laid out by :func:`closure_plan`; above it the grid closure, one
+  cooperative launch of ``GRID_THREADS``-thread CTAs for the stack with a
+  scratch of :func:`grid_lines_words` words.  :func:`closure_launch` picks
+  the plan by B (the fused round's closure takes the same plans).
 
 ``launches`` counts the calls of each wrapper that launched its kernel.
 """
@@ -48,9 +51,13 @@ __all__ = [
     "CLUSTER",
     "ClosurePlan",
     "closure_plan",
+    "GRID_THREADS",
+    "closure_launch",
+    "grid_lines_words",
 ]
 
-# Largest tile the closure kernels take (csrc/fw_closure.cuh kCloseMaxB).
+# Largest tile the cluster closure takes (csrc/fw_closure.cuh kCloseMaxB);
+# larger tiles close on the grid closure.
 MAX_BLOCK = 256
 # CTAs a closure cluster: the portable maximum (csrc/fw_closure.cuh kClusterMax).
 CLUSTER = 8
@@ -58,6 +65,8 @@ CLUSTER = 8
 # (csrc/fw_closure.cuh kCloseStep, kCloseMaxRows).
 STEP = 8
 MAX_ROWS = 32
+# Threads a CTA of the grid closure (csrc/fw_closure.cuh kGridThreads).
+GRID_THREADS = 512
 
 
 class ClosurePlan(NamedTuple):
@@ -91,6 +100,26 @@ def closure_plan(b: int, pred: bool = False) -> ClosurePlan:
     threads = -(-b // 32) * 32
     shared = 4 * (3 * STEP * MAX_ROWS + STEP * STEP + 2 * STEP * b * (2 if pred else 1))
     return ClosurePlan(CLUSTER, rows, threads, shared)
+
+
+def grid_lines_words(b: int, tiles: int, pred: bool = False) -> int:
+    """int32 words of the grid closure's scratch (csrc/fw_closure.cuh
+    ``grid_lines_words``): the barrier counter (4 words), then the old row
+    and column of the current pivot of each tile, double-buffered, and with
+    preds the old pred row: ``4 + 2 * tiles * b * (3 if pred else 2)``."""
+    return 4 + 2 * tiles * b * (3 if pred else 2)
+
+
+def closure_launch(b: int, pred: bool = False) -> ClosurePlan:
+    """The launch plan the closure kernels take for a B x B tile: the
+    cluster plan (:func:`closure_plan`) for B <= ``MAX_BLOCK``; above it the
+    grid closure's, no cluster (0), no rows in registers (0),
+    ``GRID_THREADS`` threads, no dynamic shared memory (``grid_plan_ok`` in
+    ``csrc/fw_closure.cuh``)."""
+    if b > MAX_BLOCK:
+        return ClosurePlan(0, 0, GRID_THREADS, 0)
+    return closure_plan(b, pred)
+
 
 launches = {"fw_block": 0, "fw_block_pred": 0}
 
@@ -129,21 +158,25 @@ def _launch(name: str, d, p, semiring) -> Tuple[torch.Tensor, Optional[torch.Ten
         raise ValueError(f"{name}: preds {tuple(p.shape)} differ from tiles {tuple(d.shape)}")
     b = d.shape[-1]
     tiles = d.shape[0] if d.ndim == 3 else 1
-    if not 1 <= b <= MAX_BLOCK:
-        raise ValueError(f"{name} takes tiles of 1 to {MAX_BLOCK} nodes, got B={b}")
+    if b < 1 or tiles < 1:
+        raise ValueError(f"{name} takes at least one tile of at least one node, got "
+                         f"{tuple(d.shape)}")
     code = semiring_code(sr, name)
     z = torch.empty_like(d)
     pz = None if p is None else torch.empty_like(p)
     from . import _build
 
-    plan = closure_plan(b, pred=p is not None)
+    plan = closure_launch(b, pred=p is not None)
+    lines = (torch.empty(grid_lines_words(b, tiles, p is not None), dtype=torch.int32,
+                         device=d.device) if b > MAX_BLOCK else None)
     fn = _build.load("fw_block").fw_block_launch
     fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p]
+        ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(d.device).cuda_stream
     err = fn(code, int(p is not None), d.data_ptr(), None if p is None else p.data_ptr(),
-             z.data_ptr(), None if pz is None else pz.data_ptr(), tiles, b, *plan, stream)
+             z.data_ptr(), None if pz is None else pz.data_ptr(), tiles, b, *plan,
+             None if lines is None else lines.data_ptr(), stream)
     if err:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
     launches[name] += 1

@@ -22,10 +22,11 @@ paths agree exactly.
   (``ops.backend``).
 
 ``rounds`` counts the calls of :func:`fw_round_cuda` that launched the
-kernel's round (three grids each: the cluster closure ``fw_closure``,
-``fw_colpanel`` and ``fw_update``).  The wrapper computes the closure's
-launch plan (``fw_block.closure_plan``) and the row pitch :func:`pitch` of
-the two (G, B, Np) scratches the update reads.
+kernel's round (three grids each: the closure, ``fw_colpanel`` and
+``fw_update``; the closure is the cluster closure ``fw_closure`` up to
+B = 256 and the grid closure ``fw_closure_grid`` above).  The wrapper
+computes the closure's launch plan (``fw_block.closure_launch``) and the
+scratches (:func:`scratch_shapes`, rows of pitch :func:`pitch`).
 """
 
 from __future__ import annotations
@@ -37,10 +38,11 @@ import torch
 from repro_torch.core.semiring import SemiringLike, get_semiring
 
 from ._codes import semiring_code
-from .fw_block import MAX_BLOCK, closure_plan, fw_block_torch
+from .fw_block import MAX_BLOCK, closure_launch, fw_block_torch, grid_lines_words
 from .minplus import minplus_torch
 
-__all__ = ["fw_round", "fw_round_torch", "fw_round_cuda", "rounds", "pitch"]
+__all__ = ["fw_round", "fw_round_torch", "fw_round_cuda", "rounds", "pitch",
+           "scratch_shapes"]
 
 rounds = 0
 
@@ -50,6 +52,18 @@ def pitch(n: int) -> int:
     multiple of 32 floats, so that every row starts 16-byte aligned for the
     update's 16-byte asynchronous copies whatever N is."""
     return -(-n // 32) * 32
+
+
+def scratch_shapes(g: int, n: int, b: int) -> dict:
+    """Shapes of the f32 scratches of one round of G graphs of N nodes at
+    tile B: the closed pivots ``apiv`` (G, B, B), col'^T ``colt`` and the
+    row-panel copy ``rowp`` (G, B, Np), and, above ``MAX_BLOCK``, the grid
+    closure's int32 ``lines`` (``fw_block.grid_lines_words``)."""
+    np_ = pitch(n)
+    shapes = {"apiv": (g, b, b), "colt": (g, b, np_), "rowp": (g, b, np_)}
+    if b > MAX_BLOCK:
+        shapes["lines"] = (grid_lines_words(b, g),)
+    return shapes
 
 
 def fw_round_torch(
@@ -83,10 +97,8 @@ def fw_round_cuda(
         raise ValueError(f"fw_round_cuda takes (N, N) or (G, N, N), got {tuple(d.shape)}")
     n = d.shape[-1]
     g = d.shape[0] if d.ndim == 3 else 1
-    if not 1 <= b <= MAX_BLOCK or n % b:
-        raise ValueError(
-            f"block_size must divide N and lie in [1, {MAX_BLOCK}]; got B={b}, N={n}"
-        )
+    if b < 1 or n % b:
+        raise ValueError(f"block_size must divide N and be at least 1; got B={b}, N={n}")
     o = int(o)
     if o % b or not 0 <= o < n:
         raise ValueError(f"pivot offset {o} is not a block of N={n}, B={b}")
@@ -95,16 +107,19 @@ def fw_round_cuda(
 
     fn = _build.load("fw_round").fw_round_launch
     fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4 + [
-        ctypes.c_int] * 9 + [ctypes.c_void_p]
+        ctypes.c_int] * 9 + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
-    np_ = pitch(n)
+    shapes = scratch_shapes(g, n, b)
     f32 = dict(dtype=torch.float32, device=d.device)
-    apiv = torch.empty((g, b, b), **f32)
-    colt = torch.empty((g, b, np_), **f32)
-    rowp = torch.empty((g, b, np_), **f32)
+    apiv = torch.empty(shapes["apiv"], **f32)
+    colt = torch.empty(shapes["colt"], **f32)
+    rowp = torch.empty(shapes["rowp"], **f32)
+    lines = (torch.empty(shapes["lines"], dtype=torch.int32, device=d.device)
+             if "lines" in shapes else None)
     stream = torch.cuda.current_stream(d.device).cuda_stream
     err = fn(code, int(d.dtype == torch.bfloat16), d.data_ptr(), apiv.data_ptr(),
-             colt.data_ptr(), rowp.data_ptr(), g, n, b, o, np_, *closure_plan(b), stream)
+             colt.data_ptr(), rowp.data_ptr(), g, n, b, o, shapes["colt"][-1],
+             *closure_launch(b), None if lines is None else lines.data_ptr(), stream)
     if err:
         raise RuntimeError(f"fw_round kernel launch failed: cudaError_t {err}")
     rounds += 1

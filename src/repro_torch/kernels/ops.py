@@ -28,7 +28,15 @@ from repro_torch.core.semiring import Semiring, SemiringLike, get_semiring
 from . import fw_round as _fw_round
 from . import row_close as _row_close
 from .fw_block import fw_block_cuda, fw_block_pred_cuda, fw_block_pred_torch, fw_block_torch
-from .minplus import minplus_argmin_cuda, minplus_argmin_torch, minplus_cuda, minplus_torch
+from .minplus import (
+    minplus_argmin_cuda,
+    minplus_argmin_torch,
+    minplus_cuda,
+    minplus_pred_cuda,
+    minplus_pred_torch,
+    minplus_torch,
+    pred_from_kstar,
+)
 
 __all__ = [
     "minplus",
@@ -94,6 +102,20 @@ def _f32(*arrays):
     return tuple(None if a is None else a.float().contiguous() for a in arrays)
 
 
+def _rows(*arrays, dtype=torch.float32):
+    """The operands in ``dtype`` with unit column stride (None passes
+    through): the product kernels read rows through their pitch, so a
+    strided panel of the state is passed as it lies."""
+    out = []
+    for a in arrays:
+        if a is not None:
+            a = a.to(dtype)
+            if a.shape[-1] > 1 and a.stride(-1) != 1:
+                a = a.contiguous()
+        out.append(a)
+    return tuple(out)
+
+
 def minplus(
     x: torch.Tensor,
     y: torch.Tensor,
@@ -106,7 +128,7 @@ def minplus(
     sr = get_semiring(semiring)
     _check_mixed(sr, x, y, a)
     fn = minplus_cuda if backend(x) == "cuda" else minplus_torch
-    return fn(*_f32(x, y, a), semiring=sr).to(x.dtype)
+    return fn(*_rows(x, y, a), semiring=sr).to(x.dtype)
 
 
 def minplus_argmin(
@@ -121,36 +143,8 @@ def minplus_argmin(
     sr = get_semiring(semiring)
     _check_mixed(sr, x, y, a)
     fn = minplus_argmin_cuda if backend(x) == "cuda" else minplus_argmin_torch
-    z, ks = fn(*_f32(x, y, a), semiring=sr)
+    z, ks = fn(*_rows(x, y, a), semiring=sr)
     return z.to(x.dtype), ks
-
-
-def pred_from_kstar(
-    kstar: torch.Tensor,
-    px: torch.Tensor,
-    py: torch.Tensor,
-    *,
-    k_offset: int = 0,
-    j_offset: int = 0,
-    fallback: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """Derive predecessors from argmin winners — the one shared rule.
-
-    ``k*`` wins for (i, j), so the path is i --(x-path)--> k* --(y-path)--> j
-    and the predecessor of j is ``py[k*, j]``, unless the y-path is empty
-    (k*'s global id, ``k* + k_offset``, is j's, ``j + j_offset``): then it is
-    x's own last hop ``px[i, k*]``.  Where ``kstar < 0`` the entry comes from
-    ``fallback`` (the old predecessors), or is -1.  Batched (G, ·, ·)
-    operands work as they are.  Plain torch gathers on either device, as in
-    the JAX package (no Pallas kernel there).
-    """
-    ks = kstar.clamp(min=0).long()
-    p_via = torch.gather(py, -2, ks)
-    p_own = torch.gather(px, -1, ks)
-    cols = torch.arange(kstar.shape[-1], device=kstar.device)
-    pz = torch.where(ks + k_offset == cols + j_offset, p_own, p_via)
-    kept = torch.full_like(pz, -1) if fallback is None else fallback
-    return torch.where(kstar < 0, kept, pz)
 
 
 def minplus_pred(
@@ -168,10 +162,17 @@ def minplus_pred(
     """Fused ⊕⊗ with predecessor propagation, on the witness kernel.
     Without ``a``: a plain product, predecessors -1 where Z is the zero.
     With ``a``/``pa``: the strict-improvement accumulate, where entries that
-    kept ``a`` keep ``pa``."""
-    z, kstar = minplus_argmin(x, y, a, semiring=semiring)
-    pz = pred_from_kstar(kstar, px, py, k_offset=k_offset, j_offset=j_offset, fallback=pa)
-    return z, pz
+    kept ``a`` keep ``pa``.  On a CUDA tensor one ``minplus_pred`` launch
+    derives the preds by :func:`pred_from_kstar`'s rule in its epilogue; on
+    a CPU tensor the plain version runs ``minplus_argmin`` and then the
+    rule's gathers.  Operands may be strided panels of the state."""
+    sr = get_semiring(semiring)
+    _check_mixed(sr, x, y, a)
+    fn = minplus_pred_cuda if backend(x) == "cuda" else minplus_pred_torch
+    preds = _rows(px, py, pa, dtype=torch.int32)
+    z, pz = fn(*_rows(x, y), *preds[:2], *_rows(a), preds[2], k_offset=k_offset,
+               j_offset=j_offset, semiring=sr)
+    return z.to(x.dtype), pz
 
 
 def rank_k_update(

@@ -1,6 +1,7 @@
-"""The port's CUDA kernels (fw_round, minplus, minplus_argmin, fw_block,
-fw_block_pred, row_close) against their plain PyTorch versions, and the
-dynamic engine on the card against the same engine on the CPU.  Marked ``cuda``: every test skips, with its reason, on a host without
+"""The port's CUDA kernels (fw_round, minplus, minplus_argmin,
+minplus_pred, fw_block, fw_block_pred, row_close) against their plain
+PyTorch versions, and the dynamic engine on the card against the same
+engine on the CPU.  Marked ``cuda``: every test skips, with its reason, on a host without
 a CUDA device.  Run them on the GPU host with
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 
@@ -8,6 +9,8 @@ Tolerance: exact (``torch.equal`` with NaN in the same places).  ⊕ is
 selective and each candidate is one rounded operation, so the kernel and
 the plain version give the same bits.
 """
+
+import importlib
 
 import numpy as np
 import pytest
@@ -17,17 +20,24 @@ from oracle import generate
 
 from repro_torch.core import DynamicAPSP, Semiring, generate_edge_updates, generate_np, init_pred, solve
 from repro_torch.core.semiring import TROPICAL
-from repro_torch.kernels import fw_block as fb
-from repro_torch.kernels import fw_round as fr
-from repro_torch.kernels import minplus as mp
 from repro_torch.kernels import ops
-from repro_torch.kernels import row_close as rc
+
+# The kernel submodules by module path: ``repro_torch.kernels.fw_block``,
+# ``.fw_round`` and ``.minplus`` are the ops functions, as in repro.kernels.
+fb = importlib.import_module("repro_torch.kernels.fw_block")
+fr = importlib.import_module("repro_torch.kernels.fw_round")
+mp = importlib.import_module("repro_torch.kernels.minplus")
+rc = importlib.import_module("repro_torch.kernels.row_close")
 
 pytestmark = pytest.mark.cuda
 
 # Tile sizes that exercise the cluster closure's layout (csrc/fw_closure.cuh,
 # 8 CTAs a tile): B < 8, B not a multiple of 8, one row a CTA, full width.
 CLOSURE_B = [1, 5, 8, 9, 31, 32, 33, 100, 255, 256]
+# Tile sizes of the grid closure (above 256 nodes): just above the cluster
+# closure, not a multiple of 4 or of the CTA's 512 threads, and the
+# reference's own cells' B = 512 and 1024.
+LARGE_B = [257, 300, 511, 512, 1000, 1024]
 
 
 @pytest.fixture
@@ -287,7 +297,7 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         mp.minplus_cuda(x, x.t())
     with pytest.raises(ValueError):
-        fb.fw_block_cuda(torch.zeros((300, 300), device=cuda))
+        fb.fw_block_cuda(torch.zeros((300, 299), device=cuda))
     with pytest.raises(ValueError):
         fb.fw_block_pred_cuda(torch.zeros((8, 8), device=cuda), torch.zeros((8, 8), dtype=torch.int32))
     with pytest.raises(ValueError):
@@ -299,7 +309,7 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda):
 @pytest.mark.parametrize("n", [100, 384])
 def test_pred_and_split_solves_on_card_match_cpu(cuda, options, n):
     h = generate_np(np.random.default_rng(n), n).h
-    mp.launches.update(minplus=0, minplus_argmin=0)
+    mp.launches.update(minplus=0, minplus_argmin=0, minplus_pred=0)
     fb.launches.update(fw_block=0, fw_block_pred=0)
     got = solve(h, **options)
     want = solve(h, device="cpu", **options)
@@ -309,7 +319,8 @@ def test_pred_and_split_solves_on_card_match_cpu(cuda, options, n):
         assert got.pred.is_cuda and got.pred.dtype == torch.int32
         assert torch.equal(got.pred.cpu(), want.pred)
         assert fb.launches["fw_block_pred"] == rounds
-        assert mp.launches["minplus_argmin"] == (3 if options.get("round_mode") else 2) * rounds
+        assert mp.launches["minplus_pred"] == (3 if options.get("round_mode") else 2) * rounds
+        assert mp.launches["minplus_argmin"] == 0
     else:
         assert fb.launches["fw_block"] == rounds and mp.launches["minplus"] == 3 * rounds
 
@@ -398,7 +409,7 @@ def test_dynamic_stream_on_card_matches_cpu(cuda, with_pred, row_threshold):
     card, host = DynamicAPSP(h, **kw), DynamicAPSP(h, device="cpu", **kw)
     assert card.dist.is_cuda and card.device.type == "cuda"
     rc.launches["row_close"] = 0
-    mp.launches.update(minplus=0, minplus_argmin=0)
+    mp.launches.update(minplus=0, minplus_argmin=0, minplus_pred=0)
     for wf in (0.0, 0.5, 1.0, 0.5):
         batch = generate_edge_updates(rng, host.h, 16, worsen_frac=wf)
         assert card.update(*batch) == host.update(*batch)
@@ -411,3 +422,143 @@ def test_dynamic_stream_on_card_matches_cpu(cuda, with_pred, row_threshold):
         assert card.stats["warm_resolve"] >= 1 and rc.launches["row_close"] == 0
     assert mp.launches["minplus_argmin" if with_pred else "minplus"] > 0
 
+
+
+def _pred_pair(x, y, px, py, a, pa, k_offset, j_offset, semiring="tropical"):
+    before = mp.launches["minplus_pred"]
+    got = mp.minplus_pred_cuda(x, y, px, py, a, pa, k_offset=k_offset, j_offset=j_offset,
+                               semiring=semiring)
+    assert mp.launches["minplus_pred"] == before + 1
+    want = mp.minplus_pred_torch(x, y, px, py, a, pa, k_offset=k_offset, j_offset=j_offset,
+                                 semiring=semiring)
+    torch.cuda.synchronize()
+    return _same(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("semiring", SEMIRINGS)
+@pytest.mark.parametrize("acc", [False, True])
+@pytest.mark.parametrize("ties", [False, True])
+def test_minplus_pred_kernel_matches_plain(cuda, semiring, acc, ties):
+    """The pred epilogue against minplus_argmin_torch + pred_from_kstar: a
+    batch of G = 3, k_offset != j_offset (so that some winners are the
+    output's own column), px a strided view of a wider pred matrix."""
+    rng = np.random.default_rng(31 + acc + 2 * ties)
+    g, m, k, n = 3, 300, 96, 260
+    x = _mat(rng, (g, m, k), semiring, ties).to(cuda)
+    y = _mat(rng, (g, k, n), semiring, ties).to(cuda)
+    a = _mat(rng, (g, m, n), semiring, ties, 0.3).to(cuda) if acc else None
+    wide = torch.randint(-1, 5000, (g, m, k + 40), dtype=torch.int32, device=cuda)
+    px = wide[..., 17:17 + k]                       # strided: row pitch k + 40
+    py = torch.randint(-1, 5000, (g, k, n), dtype=torch.int32, device=cuda)
+    pa = torch.randint(-1, 5000, (g, m, n), dtype=torch.int32, device=cuda) if acc else None
+    assert not px.is_contiguous()
+    for k_offset, j_offset in ((0, 0), (100, 40), (0, 50)):
+        assert _pred_pair(x, y, px, py, a, pa, k_offset, j_offset, semiring)
+    if acc:   # an accumulator without a fallback: -1 where it was kept
+        assert _pred_pair(x, y, px, py, a, None, 100, 40, semiring)
+
+
+def test_minplus_pred_kernel_on_state_panels(cuda):
+    """The pred round's two shapes on strided panels of one state, as
+    ops.fw_round_pred passes them: stage 2 (col ⊗ A*, accumulate into col)
+    and stage 3 (col' ⊗ row, accumulate into D), and ops.minplus_pred is one
+    launch on a CUDA tensor."""
+    n, b, o = 1024, 256, 512
+    h = torch.from_numpy(generate_np(np.random.default_rng(8), n, rho=8.0).h).to(cuda)
+    p = init_pred(h)
+    piv, ppiv = fb.fw_block_pred_torch(h[o:o + b, o:o + b], p[o:o + b, o:o + b])
+    col, pcol = h[:, o:o + b], p[:, o:o + b]
+    assert _pred_pair(col, piv, pcol, ppiv, col, pcol, o, o)
+    colp, pcolp = mp.minplus_pred_torch(col, piv, pcol, ppiv, col, pcol, k_offset=o, j_offset=o)
+    assert _pred_pair(colp, h[o:o + b, :], pcolp, p[o:o + b, :], h, p, o, 0)
+    before = dict(mp.launches)
+    got = ops.minplus_pred(col, piv, pcol, ppiv, a=col, pa=pcol, k_offset=o, j_offset=o)
+    assert mp.launches["minplus_pred"] == before["minplus_pred"] + 1
+    assert {k_: v for k_, v in mp.launches.items() if k_ != "minplus_pred"} == {
+        k_: v for k_, v in before.items() if k_ != "minplus_pred"}
+    want = ops.minplus_pred(col.cpu(), piv.cpu(), pcol.cpu(), ppiv.cpu(), a=col.cpu(),
+                            pa=pcol.cpu(), k_offset=o, j_offset=o)
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.parametrize("kind", ["minplus", "minplus_argmin"])
+@pytest.mark.parametrize("m,k,n", [(7, 19, 100), (19, 7, 257), (100, 257, 7), (257, 100, 19),
+                                   (257, 257, 257), (7, 1, 7)])
+def test_minplus_kernels_ragged_shapes(cuda, kind, m, k, n):
+    """M, N, K that are not multiples of the tile or of 4: the k-major copy's
+    padding, a y whose rows the ring cannot copy as they lie, the last
+    partial k slice of the witness fold."""
+    rng = np.random.default_rng(m * k + n)
+    x = _mat(rng, (m, k), "tropical", True).to(cuda)
+    y = _mat(rng, (k, n), "tropical", True).to(cuda)
+    a = _mat(rng, (m, n), "tropical", True, 0.3).to(cuda)
+    assert _product_pair(kind, x, y, None, "tropical")
+    assert _product_pair(kind, x, y, a, "tropical")
+    assert _product_pair(kind, x, y, a, "reliability")
+
+
+@pytest.mark.parametrize("pred", [False, True])
+@pytest.mark.parametrize("b", LARGE_B)
+def test_large_tile_closures_match_plain(cuda, pred, b):
+    """The grid closure on a T = 3 stack, and on one tile with a tropical
+    negative cycle and NaN (every step must read the old row and column)."""
+    rng = np.random.default_rng(b)
+    d = torch.stack([torch.from_numpy(generate(rng, b, "tropical")) for _ in range(3)]).to(cuda)
+    p = torch.randint(-1, 5000, d.shape, dtype=torch.int32, device=cuda)
+    h = generate_np(rng, b, rho=30.0).h
+    h[2, 7], h[7, 2] = -9.0, 3.0
+    h[b - 2, b - 1] = np.nan
+    one = torch.from_numpy(h).to(cuda)
+    pone = init_pred(one)
+    for tiles, ptiles in ((d, p), (one, pone)):
+        if pred:
+            before = fb.launches["fw_block_pred"]
+            got = fb.fw_block_pred_cuda(tiles, ptiles)
+            assert fb.launches["fw_block_pred"] == before + 1
+            want = fb.fw_block_pred_torch(tiles, ptiles)
+            torch.cuda.synchronize()
+            assert _same(got[0], want[0]) and torch.equal(got[1], want[1])
+        else:
+            got = fb.fw_block_cuda(tiles)
+            torch.cuda.synchronize()
+            assert _same(got, fb.fw_block_torch(tiles))
+    assert bool((torch.diagonal(fb.fw_block_pred_torch(one, pone)[0]) < 0).any())
+
+
+@pytest.mark.parametrize("b", LARGE_B)
+def test_large_tile_rounds_match_plain(cuda, b):
+    """fw_round with the grid closure: G = 3 bottleneck, and bf16 storage
+    (the closed pivot rounded through bf16)."""
+    rng = np.random.default_rng(b + 1)
+    hs = torch.from_numpy(np.stack([generate(rng, 2 * b, "bottleneck") for _ in range(3)])).to(cuda)
+    got, want = _round_pair(hs, b, b, "bottleneck")
+    assert _same(got, want)
+    h = torch.from_numpy(generate_np(rng, 2 * b).h).to(cuda)
+    got, want = _round_pair(h.to(torch.bfloat16), 0, b, "tropical")
+    assert got.dtype == torch.bfloat16 and _same(got.float(), want.float())
+    d = torch.stack([torch.from_numpy(generate(rng, b, "tropical")) for _ in range(3)]).to(cuda)
+    got = ops.fw_block(d.bfloat16())
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got.cpu(), ops.fw_block(d.cpu().bfloat16()))
+
+
+@pytest.mark.parametrize("options", [{}, {"with_pred": True}, {"round_mode": "split"},
+                                     {"round_mode": "split", "with_pred": True}])
+def test_large_tile_solves_on_card_match_cpu(cuda, options):
+    """B = 512 on every path at n = 700 (padded to 1024), against the CPU."""
+    h = generate_np(np.random.default_rng(700), 700, rho=4.0).h
+    got = solve(h, block_size=512, **options)
+    want = solve(h, block_size=512, device="cpu", **options)
+    assert torch.equal(got.dist.cpu(), want.dist)
+    assert got.pred is None or torch.equal(got.pred.cpu(), want.pred)
+
+
+@pytest.mark.parametrize("b", [512, 1024])
+def test_large_tile_solve_at_8192_equals_b256(cuda, b):
+    """Integer weights: every sum is exact, so any B gives the same bits."""
+    h = generate_np(np.random.default_rng(0), 8192, rho=2.0).h
+    want = solve(h).dist
+    before = fr.rounds
+    got = solve(h, block_size=b).dist
+    assert fr.rounds - before == 8192 // b
+    assert torch.equal(got, want)

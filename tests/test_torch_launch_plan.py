@@ -1,20 +1,25 @@
 """The launch plans that the port's wrappers compute in Python and pass to
 the CUDA kernels: the cluster closure's plan (``fw_block.closure_plan``,
-taken by ``fw_closure``, ``fw_block`` and ``fw_block_pred``) and the row
-pitch of ``fw_round``'s scratches (``fw_round.pitch``).  The kernels check
-the same conditions (``close_plan_ok`` in ``csrc/fw_closure.cuh``, the
-pitch test in ``fw_round_launch``) and refuse a plan that fails them; these
-tests hold the plans to them on the CPU, for every tile size the kernels
-take.
+taken by ``fw_closure``, ``fw_block`` and ``fw_block_pred`` up to 256
+nodes), the grid closure's above it (``fw_block.closure_launch``, its rows
+and its scratch ``grid_lines_words``), and ``fw_round``'s
+scratches (``fw_round.scratch_shapes``, rows of pitch ``fw_round.pitch``).
+The kernels check the same conditions (``close_plan_ok`` and
+``grid_plan_ok`` in ``csrc/fw_closure.cuh``, the pitch test in
+``fw_round_launch``) and refuse a plan that fails them; these tests hold
+the plans to them on the CPU, for every tile size the kernels take.
 """
 
+import importlib
 import re
 from pathlib import Path
 
 import pytest
 
-from repro_torch.kernels import fw_block as fb
-from repro_torch.kernels import fw_round as fr
+# By module path: ``repro_torch.kernels.fw_block`` and ``.fw_round`` are
+# the ops functions of those names, as in ``repro.kernels``.
+fb = importlib.import_module("repro_torch.kernels.fw_block")
+fr = importlib.import_module("repro_torch.kernels.fw_round")
 
 CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "kernels" / "csrc"
 SHARED_PER_CTA = 227 * 1024      # the H100's 227 KB (232,448 bytes)
@@ -103,3 +108,74 @@ def test_scratch_pitch_is_a_multiple_of_32_at_least_n():
     for n in list(range(1, 2049)) + [8191, 8192, 8193, 100_000]:
         np_ = fr.pitch(n)
         assert np_ % 32 == 0 and n <= np_ < n + 32, n
+
+
+# Tiles of the grid closure: just above the cluster closure, the reference
+# cells' 512 and 1024, and one that is not a multiple of 32 or of 4.
+GRID_B = [257, 512, 1000, 1024]
+
+
+def _grid_lines_words(b: int, tiles: int, pred: bool) -> int:
+    """C's ``grid_lines_words(b, tiles, pred)``, evaluated from its source."""
+    text = (CSRC / "fw_closure.cuh").read_text()
+    m = re.search(r"long long grid_lines_words\(int b, int tiles, bool pred\) \{\s*return ([^;]+);",
+                  text)
+    assert m
+    expr = re.sub(r"\(pred \? (\d+) : (\d+)\)", r"(\1 if pred else \2)", m.group(1))
+    expr = expr.replace("2LL", "2")
+    assert re.fullmatch(r"[\d\s()*+a-z]+", expr), expr
+    return eval(expr, {}, {"b": b, "tiles": tiles, "pred": pred})
+
+
+@pytest.mark.parametrize("pred", [False, True])
+@pytest.mark.parametrize("b", GRID_B)
+def test_grid_plan_fits_the_kernel(b, pred):
+    """Above 256 nodes the wrappers pass the grid closure's plan, which
+    grid_plan_ok accepts: no cluster, no rows in registers, kGridThreads
+    threads, no dynamic shared memory; up to 256 the cluster plan."""
+    assert fb.GRID_THREADS == _constant("kGridThreads")
+    assert fb.closure_launch(b, pred) == (0, 0, fb.GRID_THREADS, 0)
+    assert fb.closure_launch(fb.MAX_BLOCK, pred) == fb.closure_plan(fb.MAX_BLOCK, pred)
+    with pytest.raises(ValueError):
+        fb.closure_plan(b, pred)      # the cluster plan keeps its meaning
+
+
+@pytest.mark.parametrize("b", GRID_B)
+@pytest.mark.parametrize("tiles", [1, 3])
+def test_grid_closure_rows_and_columns_are_owned_once(b, tiles):
+    """grid_close's loops: CTA c of C owns rows c, c + C, ... of the stacked
+    tiles (tile t's row r is row t*B + r), its thread j columns j, j +
+    kGridThreads, ...  Every row belongs to one CTA whatever the grid (the
+    launch takes min(SMs, rows) CTAs), and the threads cover 0..B-1 once."""
+    rows = tiles * b
+    for ctas in (1, 7, 132, rows):
+        owned = sorted(r for c in range(ctas) for r in range(c, rows, ctas))
+        assert owned == list(range(rows)), ctas
+    cols = sorted(c for j in range(fb.GRID_THREADS) for c in range(j, b, fb.GRID_THREADS))
+    assert cols == list(range(b))
+
+
+@pytest.mark.parametrize("pred", [False, True])
+@pytest.mark.parametrize("b", GRID_B)
+@pytest.mark.parametrize("tiles", [1, 3])
+def test_grid_closure_scratch(b, tiles, pred):
+    """The scratch the wrappers allocate is C's grid_lines_words: a barrier
+    counter, then two buffers of the pivot's old row and column (and pred
+    row) a tile; a 1024-node tile's lines are a few KiB beside its 4 MiB."""
+    words = fb.grid_lines_words(b, tiles, pred)
+    assert words == _grid_lines_words(b, tiles, pred)
+    assert words == 4 + 2 * tiles * b * (3 if pred else 2)
+    assert 4 * words < 4 * b * b * tiles / 8
+
+
+@pytest.mark.parametrize("b", GRID_B)
+@pytest.mark.parametrize("g", [1, 3])
+def test_round_scratch_shapes(b, g):
+    """fw_round's scratches at B > 256: (G, B, B) pivots, (G, B, Np) col'^T
+    and row panel, and the grid closure's lines; none of it B-limited."""
+    n = 2 * b
+    shapes = fr.scratch_shapes(g, n, b)
+    np_ = fr.pitch(n)
+    assert shapes == {"apiv": (g, b, b), "colt": (g, b, np_), "rowp": (g, b, np_),
+                      "lines": (fb.grid_lines_words(b, g),)}
+    assert "lines" not in fr.scratch_shapes(g, 512, 256)
