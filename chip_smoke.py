@@ -29,17 +29,22 @@ read just after:
 It then drives the dynamic engine, ``repro_torch.DynamicAPSP``, at
 N = 8192 with and without predecessors through a stream of edge-update
 batches that takes the rank-k path (``minplus``, ``minplus_argmin``), the
-row-restricted re-close (``row_close``) and, on twin engines, the warm
-re-solve; after every update ``dist`` equals a cold solve, the pred tree is
-valid and its paths cost Dijkstra's distances, and every ``row_close``
-launch is replayed through its plain version.
+row-restricted re-close (``row_close`` and ``row_close_pred``, at r <= 64,
+where k is split across CTAs, and at r >= 1024) and, on twin engines, the
+warm re-solve; after every update ``dist`` equals a cold solve, the pred
+tree is valid and its paths cost Dijkstra's distances, and every row-close
+launch is replayed through its plain version (and the witness mode,
+``row_close_argmin``, on each pred launch's inputs).  The row pass is
+timed in its three modes at r = 16, 64, 1024 and 2048 beside its bounds,
+and one pass with preds is traced: it launches ``row_close_pred`` only
+and holds no gather or where row.
 
 It traces a solve of each path with ``torch.profiler`` (the pred traces
 must hold no gather row: the pred rule runs in ``minplus_pred``'s
 epilogue), holds every kernel against its plain version once more at the
 main path's shapes (and ``minplus`` / ``minplus_argmin`` at the rank-k
 shapes), times it there and prints
-one JSON line of kernel numbers: ``fw_round`` with its three grids' ms a
+one JSON line of kernel numbers: ``fw_round`` with its four grids' ms a
 round, and the three cluster closures (``fw_closure``, ``fw_block``,
 ``fw_block_pred``) with their ms a step and the cluster size that their
 launches on each path recorded on the card (checked against the plan).
@@ -52,8 +57,8 @@ so the script exits non-zero; without a CUDA device, or without the repo's
 ``fw_block`` and ``fw_block_pred`` a tile (a wrapper call, and the
 kernel's device time in a traced solve), the product kernels at the
 rounds' shapes (a wrapper call, and each grid's device time), the pred
-solve's device rows, ``minplus.cu``'s ptxas report, and the four solve
-paths at N = 8192, for the package
+solve's device rows, ``minplus.cu``'s ptxas report, the four solve
+paths at N = 8192, and the row pass (``row_close_times``), for the package
 under ``ROOT/src`` (this tree, or another commit unpacked with ``git
 archive``), and prints them as one JSON line.
 Run it on two trees in turns, in one run on one card, to compare them.
@@ -274,6 +279,61 @@ def product_times(h: torch.Tensor, b: int = 256):
             for label, fn in shapes.items()}
 
 
+# Row lists of the row-close pass that are timed: two short lists (the
+# split-k grid) and two long ones (the engine's n/8 and n/4 buckets).
+ROW_CLOSE_R = (16, 64, 1024, 2048)
+ROW_CLOSE_MODES = ("row_close", "row_close_argmin", "row_close_pred")
+
+
+def row_close_times(h: torch.Tensor):
+    """The row-close pass on the (N, N) matrix h on the card, for r in
+    ``ROW_CLOSE_R`` distinct sorted row ids (drawn from a seed, as the
+    engine lists its affected rows): the device ms (``device_ms``) of each
+    mode's wrapper (``row_close_pred`` in trees that have it), and of the
+    whole pass ``ops.row_restricted_close`` without and with preds (the
+    panel, the pred rule and the write-back), which every tree has.  A
+    wrapper call's device ms holds the host's time between its row check,
+    which synchronises, and its launch; in trees whose wrapper can hand out
+    its launch (``_prepare``), each mode's grids are also timed alone
+    ("<mode> kernel")."""
+    from repro_torch.core import init_pred
+    from repro_torch.kernels import ops
+
+    rc = kernel_module("row_close")
+    n = h.shape[0]
+    p = init_pred(h)
+    perm = np.random.default_rng(5).permutation(n)
+    out = {}
+    for r in ROW_CLOSE_R:
+        rows = torch.from_numpy(np.sort(perm[:r]).astype(np.int32)).cuda()
+        calls = {"row_close": lambda: rc.row_close_cuda(h, rows),
+                 "row_close_argmin": lambda: rc.row_close_cuda(h, rows, track=True),
+                 "pass": lambda: ops.row_restricted_close(h, rows),
+                 "pass with preds": lambda: ops.row_restricted_close(h, rows, pred=p)}
+        if hasattr(rc, "row_close_pred_cuda"):
+            calls["row_close_pred"] = lambda: rc.row_close_pred_cuda(h, rows, p)
+        if hasattr(rc, "_prepare"):
+            for mode in ROW_CLOSE_MODES:
+                launch = rc._prepare(mode, h, rows, p if mode == "row_close_pred" else None,
+                                     "tropical")[0]
+                calls[f"{mode} kernel"] = lambda launch=launch: check(
+                    launch() == 0, "a timed row_close launch failed")
+        out[r] = {name: device_ms(fn) for name, fn in calls.items()}
+    return out
+
+
+def row_close_bound(mode: str, r: int, n: int, lane_rate: float):
+    """(operations ms, bytes ms) of one row-close pass: r*n*n candidates at
+    two FP32 instructions (four with a witness) over the card's FP32 issue
+    rate; against D read once, the row ids, Z written once and, with a
+    witness, K* or the preds written once and, for the preds, one pred read
+    an output (the kept pred[R[i], j] or the winner's pred[k*, j])."""
+    track = mode != "row_close"
+    ops_ms = (4 if track else 2) * r * n * n / lane_rate * 1e3
+    words = n * n + r + r * n * {"row_close": 1, "row_close_argmin": 2, "row_close_pred": 3}[mode]
+    return ops_ms, 4 * words / HBM_BYTES_PER_S * 1e3
+
+
 SASS_FUNC = re.compile(r"Function : (\S+)")
 SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
 
@@ -364,9 +424,9 @@ def timings(repro_torch, h: torch.Tensor, label: str = ""):
 
 def times(root: Path) -> int:
     """``--times ROOT``: the kernel and solve times of the package under
-    ``ROOT/src`` at N = 8192, B = 256 (``timings``, ``product_times``, and
+    ``ROOT/src`` at N = 8192, B = 256 (``timings``, ``product_times``,
     ``fw_block`` / ``fw_block_pred`` a wrapper call on the pivot tile at
-    N/2), as one JSON line."""
+    N/2, and ``row_close_times``), as one JSON line."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -388,7 +448,8 @@ def times(root: Path) -> int:
     print(json.dumps({
         "root": str(root), "card": card, "package": repro_torch.__file__,
         "fw_round_ms": statistics.median(got["round_ms"]),
-        "grid_ms": {k: grid_ms(main_rows, k) for k in ("fw_closure", "fw_colpanel", "fw_update")},
+        "grid_ms": {k: grid_ms(main_rows, k)
+                    for k in ("fw_closure", "fw_panels", "fw_colpanel", "fw_update")},
         "device_busy_share": busy / window,
         "tile_ms": {"fw_block": median_ms(lambda: fb.fw_block_cuda(piv), reps=10),
                     "fw_block_pred": median_ms(lambda: fb.fw_block_pred_cuda(piv, ppiv), reps=10)},
@@ -400,17 +461,19 @@ def times(root: Path) -> int:
         "pred_solve_rows": {name[:90]: v
                             for name, v in got["traces"]["with_pred N=8192"][0].items()},
         "ptxas_minplus": _build.ptxas_report("minplus"),
+        "row_close": row_close_times(h),
+        "ptxas_row_close": _build.ptxas_report("row_close"),
     }))
     return 0
 
 
-def tree_worsening(rng: np.random.Generator, eng, k: int):
+def tree_worsening(rng: np.random.Generator, eng, k: int, cap: int):
     """Up to k edges of ``eng``'s recorded shortest-path trees (the last hops
     ``pred[i, j] -> j`` of sampled reachable pairs), each made 100-300
     dearer: a worsening batch for the row-restricted re-close.  An edge is
     taken only while the sources whose tree ends in it (``pred[:, v] == u``,
-    the rows the engine will re-close) stay at most n / 8 in all, so the
-    batch stays under the engine's ``row_threshold`` of n / 2.
+    the rows the engine will re-close) stay at most ``cap`` in all (below
+    the engine's ``row_threshold`` of n / 2).
     (``generate_edge_updates`` worsens random pairs, and at 1% density
     almost every random pair is a missing edge, so its "worsenings" are
     inserts.)"""
@@ -426,7 +489,7 @@ def tree_worsening(rng: np.random.Generator, eng, k: int):
         if i == j or p < 0 or (int(p), int(j)) in edges:
             continue
         grown = rows | (eng.pred[:, int(j)] == int(p))
-        if int(grown.sum()) <= n // 8:
+        if int(grown.sum()) <= cap:
             rows = grown
             edges.append((int(p), int(j)))
     check(bool(edges), "dynamic: found no tree edge to worsen")
@@ -436,10 +499,11 @@ def tree_worsening(rng: np.random.Generator, eng, k: int):
     return u, v, (h[u, v] + rng.integers(100, 300, len(u))).astype(np.float32)
 
 
-def drive_dynamic(dev, card: str, lane_rate: float, n: int = 8192):
-    """Phase 6: the dynamic engine at N = ``n``.  Returns the ``row_close``
-    kernel entry, the launches of each kernel in the checked stream, and a
-    summary of update times by path."""
+def drive_dynamic(dev, card: str, n: int = 8192):
+    """Phase 6: the dynamic engine at N = ``n``.  Returns the launches of
+    each kernel in the checked stream, a summary of update times by path,
+    and the largest |error| of a ``row_close`` launch against its plain
+    version."""
     import scipy.sparse
     from scipy.sparse.csgraph import dijkstra
 
@@ -461,17 +525,24 @@ def drive_dynamic(dev, card: str, lane_rate: float, n: int = 8192):
         print(f"dynamic: four engines at N={n} built in {time.perf_counter() - t0:.1f} s")
         return made
 
-    # Every row_close launch of the checked stream is kept on its exact
-    # inputs and output, and replayed through the plain version after the
-    # update.  The recorder calls the one wrapper, which counts the launch.
+    # Every row_close launch of the checked stream (any of its three modes)
+    # is kept on its exact inputs and outputs, and replayed through the plain
+    # version after the update.  The recorders call the wrappers, which
+    # count the launches.
     recorded = []
-    launch_row_close = rc.row_close_cuda
+    launch_row_close, launch_row_close_pred = rc.row_close_cuda, rc.row_close_pred_cuda
 
     def recorder(d, rows, *, track=False, semiring="tropical"):
         z, ks = launch_row_close(d, rows, track=track, semiring=semiring)
-        recorded.append((d.clone(), rows.clone(), track, semiring, z.clone(),
-                         None if ks is None else ks.clone()))
+        recorded.append(("row_close_argmin" if track else "row_close", d.clone(), rows.clone(),
+                         None, semiring, z.clone(), None if ks is None else ks.clone()))
         return z, ks
+
+    def pred_recorder(d, rows, pred, *, semiring="tropical"):
+        z, pz = launch_row_close_pred(d, rows, pred, semiring=semiring)
+        recorded.append(("row_close_pred", d.clone(), rows.clone(), pred.clone(), semiring,
+                         z.clone(), pz.clone()))
+        return z, pz
 
     def counts():
         return {"fw_round": fr.rounds, **mp.launches, **fb.launches, **rc.launches}
@@ -480,7 +551,34 @@ def drive_dynamic(dev, card: str, lane_rate: float, n: int = 8192):
         fr.rounds = 0
         mp.launches.update(dict.fromkeys(mp.launches, 0))
         fb.launches.update(fw_block=0, fw_block_pred=0)
-        rc.launches["row_close"] = 0
+        rc.launches.update(dict.fromkeys(rc.launches, 0))
+
+    def replay(step, label, mode, d, rows, pred, sr, z, out):
+        """A recorded launch against its plain version; a pred launch also
+        against the witness mode on the same inputs (a launch made only to
+        compare, after the path's counts were read) through
+        pred_from_kstar.  Returns the largest |error| of the values."""
+        if mode == "row_close_pred":
+            want_z, want_k = rc.row_close_torch(d, rows, track=True, semiring=sr)
+            ppanel = pred.index_select(0, rows.long())
+            want_o = mp.pred_from_kstar(want_k, ppanel, pred, fallback=ppanel)
+            zk, ks = launch_row_close(d, rows, track=True, semiring=sr)
+            check(same(zk, want_z) and torch.equal(ks, want_k),
+                  f"dynamic step {step} {label}: row_close_argmin differs from the plain "
+                  "version on a pred launch's inputs")
+            held[("row_close_argmin", rows.numel() <= 64)] += 1
+        else:
+            want_z, want_o = rc.row_close_torch(d, rows, track=mode != "row_close", semiring=sr)
+        check(same(z, want_z) and (out is None or torch.equal(out, want_o)),
+              f"dynamic step {step} {label}: a {mode} launch differs from the plain version "
+              "on its own inputs")
+        held[(mode, rows.numel() <= 64)] += 1
+        return abs_err(z, want_z)
+
+    # (mode, r <= 64): launches held against the plain version; the
+    # witness mode is held on the pred launches' inputs.
+    held = {(m, short): 0 for m in rc.launches for short in (True, False)}
+    rows_seen = {m: [] for m in rc.launches}
 
     eng = engines()
     twins_until = 2          # the twins take the first two batches only
@@ -488,14 +586,17 @@ def drive_dynamic(dev, card: str, lane_rate: float, n: int = 8192):
     launches = {}
     replayed = 0
     err = 0.0
-    kept = {}                # one recorded launch of each kind, for the timings
-    rc.row_close_cuda = recorder
+    rc.row_close_cuda, rc.row_close_pred_cuda = recorder, pred_recorder
     try:
-        for step in range(6):
-            if step in (1, 4):
-                batch = tree_worsening(rng, eng["pred"], 16)
+        for step in range(7):
+            # Worsenings of tree edges: up to n/8 affected rows (step 1),
+            # n/4 (step 4, r above 1024), and at most 64 (step 6, the
+            # short-row grid that splits k).
+            if step in (1, 4, 6):
+                batch = tree_worsening(rng, eng["pred"], 4 if step == 6 else 16,
+                                       {1: n // 8, 4: n // 4, 6: 64}[step])
             elif step == 3:
-                uw, vw, ww = tree_worsening(rng, eng["pred"], 8)
+                uw, vw, ww = tree_worsening(rng, eng["pred"], 8, n // 8)
                 ud, vd, wd = repro_torch.generate_edge_updates(rng, eng["pred"].h, 8)
                 batch = (np.r_[uw, ud], np.r_[vw, vd], np.r_[ww, wd])
             else:
@@ -510,15 +611,9 @@ def drive_dynamic(dev, card: str, lane_rate: float, n: int = 8192):
                 torch.cuda.synchronize()
                 for kind, c in counts().items():
                     launches[kind] = launches.get(kind, 0) + c
-                for d, rows, track, sr, z, ks in recorded:
-                    want_z, want_k = rc.row_close_torch(d, rows, track=track, semiring=sr)
-                    check(same(z, want_z) and (ks is None or torch.equal(ks, want_k)),
-                          f"dynamic step {step} {label}: a row_close launch differs from "
-                          "the plain version on its own inputs")
-                    err = max(err, abs_err(z, want_z))
-                    kept.setdefault(track, (d, rows))
-                    if rows.numel() > kept[track][1].numel():
-                        kept[track] = (d, rows)
+                for mode, d, rows, pred, sr, z, out in recorded:
+                    err = max(err, replay(step, label, mode, d, rows, pred, sr, z, out))
+                    rows_seen[mode].append(rows.numel())
                     replayed += 1
                 recorded.clear()
                 cold = repro_torch.solve(e.h).dist
@@ -556,19 +651,32 @@ def drive_dynamic(dev, card: str, lane_rate: float, n: int = 8192):
                     check(torch.equal(e.dist, twin_of.dist),
                           f"dynamic step {step}: {label} differs from its row-path engine")
     finally:
-        rc.row_close_cuda = launch_row_close
+        rc.row_close_cuda, rc.row_close_pred_cuda = launch_row_close, launch_row_close_pred
     stats = {label: e.stats for label, e in eng.items()}
     print(f"dynamic stats: {json.dumps(stats)}")
     total = {k: sum(st[k] for st in stats.values()) for k in ("rank_k", "row_resolve",
                                                               "warm_resolve", "row_iters")}
     check(total["rank_k"] >= 1 and total["row_resolve"] >= 1 and total["warm_resolve"] >= 1
           and total["row_iters"] >= 1, f"dynamic: a path was not taken: {total}")
-    check(launches["row_close"] > 0 and launches["row_close"] == replayed,
-          f"dynamic: row_close launches {launches['row_close']}, replayed {replayed}")
+    row_launches = {m: launches[m] for m in rc.launches}
+    check(sum(row_launches.values()) == replayed,
+          f"dynamic: row_close launches {row_launches}, replayed {replayed}")
+    # The plain engine's row pass launches row_close, the pred engine's
+    # row_close_pred, each at r <= 64 and at r >= 1024; nothing on the path
+    # launches row_close_argmin, which is held on the pred launches' inputs.
+    for mode in ("row_close", "row_close_pred"):
+        check(min(rows_seen[mode], default=n) <= 64 and max(rows_seen[mode], default=0) >= 1024,
+              f"dynamic: {mode} ran at r = {sorted(set(rows_seen[mode]))}, not at both "
+              "r <= 64 and r >= 1024")
+    check(row_launches["row_close_argmin"] == 0,
+          f"dynamic: the engine launched row_close_argmin: {row_launches}")
+    check(all(held.values()), f"dynamic: a mode was not held at both sizes: {held}")
     check(launches["minplus"] > 0 and launches["minplus_argmin"] > 0,
           f"dynamic: the rank-k kernels did not run: {launches}")
     print(f"dynamic: launches in the checked stream {json.dumps(launches)}; every "
-          f"row_close launch ({replayed}) equal to the plain version on its inputs")
+          f"row_close launch ({replayed}) equal to the plain version on its inputs; rows a "
+          f"pass {json.dumps({m: sorted(set(v)) for m, v in rows_seen.items()})}; held "
+          f"(mode, r <= 64): {json.dumps({f'{m} {s_}': c for (m, s_), c in held.items()})}")
     final = {label: (e.dist, e.pred) for label, e in eng.items()}
     del eng
 
@@ -602,53 +710,23 @@ def drive_dynamic(dev, card: str, lane_rate: float, n: int = 8192):
     for step in range(twins_until):
         for label, e in traced.items():
             info = {}
-            _, busy, window = device_breakdown(
+            rows_, busy, window = device_breakdown(
                 f"update {step} of the {label} engine",
                 lambda: info.update(e.update(*batches[step])))
             summary[f"traced {label} step {step}: {info['path']}"] = {
                 "device_busy_ms": busy, "window_ms": window, "busy_share": busy / window}
+            if info["path"] == "row_resolve":
+                # The pred rule runs in row_close_pred's epilogue: the row
+                # update holds no gather row and no witness launch.
+                gathers = [name for name in rows_ if "gather" in name.lower()]
+                check(not gathers and not grid_count(rows_, "row_close_argmin"),
+                      f"update {step} of the {label} engine: gather or witness rows {gathers}")
+                print(f"update {step} of the {label} engine: no gather row, no "
+                      f"row_close_argmin; row_close_pred grids in the trace "
+                      f"{grid_count(rows_, 'row_close_pred')} of {info['iters']} passes")
     del traced
 
-    # row_close at the stream's shapes: the witness variant (pred engine)
-    # is the entry's main time.
-    check(True in kept, "dynamic: the pred engine launched no row_close")
-    entry = None
-    for track in (True, False):
-        if track not in kept:
-            continue
-        d, rows = kept[track]
-        r = rows.numel()
-        fn = lambda: rc.row_close_cuda(d, rows, track=track)
-        k_ms = median_ms(fn, reps=10)
-        p_ms = median_ms(lambda: rc.row_close_torch(d, rows, track=track), reps=1)
-        ops_k = (4 if track else 2) * r * n * n / lane_rate * 1e3
-        bytes_k = 4 * (n * n + r + r * n * (2 if track else 1)) / HBM_BYTES_PER_S * 1e3
-        shape = f"N={n} r={r}{' witness' if track else ''}"
-        print(f"row_close on {card}: {k_ms:.4f} ms at {shape} (median of 10), bound "
-              f"{max(ops_k, bytes_k):.4f} ms by {'operations' if ops_k >= bytes_k else 'bytes'} "
-              f"(operations {ops_k:.4f} ms, bytes {bytes_k:.4f} ms), plain {p_ms:.3f} ms")
-        if entry is None:
-            entry = {
-                "name": "row_close",
-                "route": "cuda",
-                "source": "src/repro_torch/kernels/csrc/row_close.cu",
-                "replaces": "src/repro/kernels/row_close.py:82",
-                "launches": launches["row_close"],
-                "max_abs_err": err,
-                "ms": k_ms,
-                "plain_ms": p_ms,
-                "bound_ms": max(ops_k, bytes_k),
-                "bound_by": "operations" if ops_k >= bytes_k else "bytes",
-                "instructions_per_candidate": 4 if track else 2,
-                "library_ms": None,
-                "shape": shape,
-                "other_shapes_ms": {},
-                "card": card,
-            }
-        else:
-            entry["other_shapes_ms"][shape] = k_ms
-            entry[f"bound_ms {shape}"] = max(ops_k, bytes_k)
-    return entry, launches, summary
+    return launches, summary, err
 
 
 def main() -> int:
@@ -693,7 +771,9 @@ def main() -> int:
     # a tropical candidate), the premise of the operations bound below, and
     # what the loop around it (a k slice: copies, barrier) adds.
     for src_, k in (("fw_round", "fw_update<0,float>"), ("minplus", "minplus<0,true>"),
-                    ("minplus", "minplus_argmin<0,true>"), ("minplus", "minplus_pred<0,true>")):
+                    ("minplus", "minplus_argmin<0,true>"), ("minplus", "minplus_pred<0,true>"),
+                    ("row_close", "row_close<0,64>"), ("row_close", "row_close<0,16>"),
+                    ("row_close", "row_close_pred<0,64>"), ("row_close", "row_close_pred<0,16>")):
         loops = sass_loops(_build, src_, k)
         hot = loops[0]
         around = [lp for lp in loops if lp["start"] <= hot["start"] and lp["end"] >= hot["end"]
@@ -1106,7 +1186,7 @@ def main() -> int:
     traces = measured["traces"]
     per_kernel, busy, window = traces["main N=8192"]
     grids = {}
-    for kernel in ("fw_closure", "fw_colpanel", "fw_update"):
+    for kernel in ("fw_closure", "fw_panels", "fw_colpanel", "fw_update"):
         count = grid_count(per_kernel, kernel)
         check(count == rounds, f"{kernel} ran {count} times in a solve of {rounds} rounds")
         grids[kernel] = count
@@ -1126,8 +1206,66 @@ def main() -> int:
 
     # 6 (run here, before the kernels line). The dynamic engine at N = 8192.
     lane_rate = sms * FP32_LANES_PER_SM * clock_mhz * 1e6
-    row_close_entry, dynamic_launches, dynamic_ms = drive_dynamic(dev, card, lane_rate)
+    dynamic_launches, dynamic_ms, row_close_err = drive_dynamic(dev, card)
     path_launches["dynamic N=8192"] = dynamic_launches
+
+    # The row-close pass at r in ROW_CLOSE_R on the N = 8192 graph: each
+    # mode against its bounds, and one pass with preds traced: it launches
+    # row_close_pred and no row_close_argmin, and holds no gather or where
+    # row (the pred rule runs in the kernel's epilogue).
+    rc = kernel_module("row_close")
+    n = 8192
+    rc_times = row_close_times(h_dev)
+    by_shape = {}
+    for r, t_ in rc_times.items():
+        for mode in ROW_CLOSE_MODES:
+            ops_k, bytes_k = row_close_bound(mode, r, n, lane_rate)
+            by_shape[f"{mode} r={r}"] = {
+                "ms": t_[f"{mode} kernel"], "call_ms": t_[mode],
+                "bound_ms": max(ops_k, bytes_k),
+                "bound_by": "operations" if ops_k >= bytes_k else "bytes",
+                "bound_ops_ms": ops_k, "bound_bytes_ms": bytes_k,
+                "share_of_bound": max(ops_k, bytes_k) / t_[f"{mode} kernel"]}
+        by_shape[f"pass r={r}"] = {"ms": t_["pass"]}
+        by_shape[f"pass with preds r={r}"] = {"ms": t_["pass with preds"]}
+    for k_, v in by_shape.items():
+        print(f"row_close {k_} N={n} on {card}: {json.dumps(v)}")
+    perm = np.random.default_rng(5).permutation(n)
+    rows = torch.from_numpy(np.sort(perm[:1024]).astype(np.int32)).to(dev)
+    p_dev = init_pred(h_dev)
+    rc.launches.update(dict.fromkeys(rc.launches, 0))
+    ops.row_restricted_close(h_dev, rows, pred=p_dev)
+    torch.cuda.synchronize()
+    check(rc.launches == {"row_close": 0, "row_close_argmin": 0, "row_close_pred": 1},
+          f"a row_restricted_close pass with preds launched {rc.launches}")
+    pass_rows = device_breakdown("one row_restricted_close pass with preds, r=1024",
+                                 lambda: ops.row_restricted_close(h_dev, rows, pred=p_dev))[0]
+    bad = [name for name in pass_rows if "gather" in name.lower() or "where" in name.lower()]
+    check(not bad, f"the traced pass with preds holds gather or where rows {bad}")
+    print(f"row_restricted_close with preds: launches row_close_pred only; its trace holds "
+          f"no gather or where row; row_close_pred grid in the trace: "
+          f"{grid_count(pass_rows, 'row_close_pred')}")
+    main_mode = "row_close_pred r=1024"
+    plain_pred = median_ms(lambda: rc.row_close_pred_torch(h_dev, rows, p_dev), reps=1)
+    row_close_entry = {
+        "name": "row_close",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/row_close.cu",
+        "replaces": "src/repro/kernels/row_close.py:82",
+        "launches": sum(dynamic_launches[m] for m in ROW_CLOSE_MODES),
+        "launches_by_mode": {m: dynamic_launches[m] for m in ROW_CLOSE_MODES},
+        "max_abs_err": row_close_err,
+        "ms": by_shape[main_mode]["ms"],
+        "plain_ms": plain_pred,
+        "bound_ms": by_shape[main_mode]["bound_ms"],
+        "bound_by": by_shape[main_mode]["bound_by"],
+        "instructions_per_candidate": 4,
+        "bound_clock_mhz": clock_mhz,
+        "library_ms": None,
+        "shape": f"N={n} r=1024 row_close_pred (device ms of its grids)",
+        "other_shapes_ms": by_shape,
+        "card": card,
+    }
 
     # 5. The plain version's time, the bound and the kernels line.
     n, b = 8192, 256

@@ -727,10 +727,11 @@ class DynamicAPSP:
             return info
         h = torch.from_numpy(self._h).to(self._device, self._dist.dtype)
         if r <= self._row_threshold * self.n:
-            # pad the row list to a pow2 bucket, repeating a real row id
-            # (inert: duplicates compute identical panel rows)
+            # the JAX engine pads the row list to a pow2 bucket with copies
+            # of a real row (inert: duplicates compute identical panel
+            # rows); the pass folds the r distinct rows once each, and the
+            # bucket sets the iteration cap and the stats as it does there
             r_pad = next_pow2(r, 4)
-            rows = torch.cat([rows, rows[:1].expand(r_pad - r)])
             dist, pred, iters = _row_close(
                 self._dist, self._pred, h, affected, rows,
                 semiring=sr, with_pred=self._with_pred,

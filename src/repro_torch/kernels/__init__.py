@@ -37,7 +37,7 @@ from .ops import (
     minplus_pred,
     pred_from_kstar,
 )
-from .row_close import row_close_cuda, row_close_torch
+from .row_close import row_close_cuda, row_close_pred_cuda, row_close_pred_torch, row_close_torch
 
 __all__ = [
     "ops", "ref", "minplus", "minplus_argmin", "minplus_pred",
@@ -47,5 +47,5 @@ __all__ = [
     "minplus_cuda", "minplus_torch", "minplus_argmin_cuda", "minplus_argmin_torch",
     "minplus_pred_cuda", "minplus_pred_torch",
     "fw_block_cuda", "fw_block_torch", "fw_block_pred_cuda", "fw_block_pred_torch",
-    "row_close_cuda", "row_close_torch",
+    "row_close_cuda", "row_close_torch", "row_close_pred_cuda", "row_close_pred_torch",
 ]

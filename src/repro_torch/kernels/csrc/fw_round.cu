@@ -16,7 +16,7 @@
 // Its memory traffic, 2*N*N*4 bytes a round, is far below that.  The
 // closure is a chain of B dependent steps and has no card-wide bound.
 //
-// The round is three grids on one stream (an f32 pivot at B = 256 is 256 KiB,
+// The round is four grids on one stream (an f32 pivot at B = 256 is 256 KiB,
 // more than one CTA's 227 KB of shared memory):
 //   1. fw_closure:  one thread-block cluster of 8 CTAs a graph closes its
 //      pivot (cluster_close, fw_closure.cuh, shared with fw_block.cu): the
@@ -26,12 +26,15 @@
 //      Above 256 nodes, fw_closure_grid closes the pivots instead: one
 //      cooperative launch of the grid closure (grid_close, fw_closure.cuh),
 //      the tile in global memory in L2, one grid barrier a pivot step.
-//   2. fw_colpanel: col' with the tiled fold (fold_tile) in 64 x 64 tiles,
-//      (B/64) * (N/64) CTAs (512 at N = 8192, B = 256, against 128 before),
-//      written transposed through shared memory into a (G, B, Np) f32
-//      scratch; the CTAs of the first column of tiles also copy the pivot
-//      row panel into a (G, B, Np) f32 scratch.
-//   3. fw_update:   CTAs over (G, N/64, N/128) output tiles fold
+//   2. fw_panels:   32 x 32 tiles copy the column panel transposed and the
+//      pivot row panel into (G, B, Np) f32 scratches, and A* into rows of a
+//      16-byte pitch: every operand of grids 3 and 4 as k-major rows.
+//   3. fw_colpanel: col'^T = A*^T ⊗ colpanel^T on the ring (fold_ring, as
+//      grid 4), (G, B/64, N/128) CTAs, written as the rows of a (G, B, Np)
+//      f32 scratch.  It replaces col' on the staged fold (scalar loads and
+//      a transposing store for each 16-step slice, 64 x 64 tiles, written
+//      transposed through shared memory); PERF.md has both times.
+//   4. fw_update:   CTAs over (G, N/64, N/128) output tiles fold
 //      col'^T ⊗ rowpanel over k = 0..B on top of D and write D in place.
 //      Both operands are k-major rows of the scratches, so the fold
 //      (fold_ring, minplus_tile.cuh) fills a ring of three shared-memory
@@ -40,12 +43,12 @@
 //      16-step slice with scalar loads and a transposing store and then
 //      waited (2.06 ms a round on an H100, half its operations bound; 2.43 SASS
 //      instructions a candidate, 0.37 of them staging).
-// Np is N rounded up to a multiple of 32 floats (computed by the wrapper),
-// so every row of both scratches is 16-byte aligned for any N.
-// In-place hazard: grid 3 reads the row panel while the CTAs that own those
+// Np and Bp are N and B rounded up to a multiple of 32 floats (computed by
+// the wrapper), so every row of the scratches is 16-byte aligned for any N.
+// In-place hazard: grid 4 reads the row panel while the CTAs that own those
 // rows overwrite them, so it reads the copy grid 2 made.  Scratch is
-// G*(B*B + 2*B*Np) floats (16 MiB at N = 8192, B = 256), against the second
-// N x N buffer (256 MiB) that ping-pong would take.
+// G*(B*B + B*Bp + 3*B*Np) floats (24.5 MiB at N = 8192, B = 256), against
+// the second N x N buffer (256 MiB) that ping-pong would take.
 //
 // The wrapper (kernels/fw_round.py) checks shapes, computes the closure's
 // launch plan and Np, and allocates the scratch; everything launches on the
@@ -57,13 +60,6 @@
 #include "semiring.cuh"
 
 namespace repro_torch {
-
-// Column panel tiles (fold_tile) and their transposed staging pitch.
-constexpr int PM = 64, PN = 64, PK = 16, PT = 4;
-using Panel = TileShape<PM, PN, PK, PT, PT>;
-constexpr int kPanelPitch = PM + 1;
-constexpr int kPanelSmemFloats =
-    Panel::kSmemFloats > PN * kPanelPitch ? Panel::kSmemFloats : PN * kPanelPitch;
 
 // Update tiles (fold_ring): 64 x 128 outputs, 32-deep k slices, 3 slots.
 constexpr int UM = 64, UN = 128, UK = 32, kStages = 3;
@@ -87,43 +83,65 @@ fw_closure_grid(const T* __restrict__ d, float* __restrict__ apiv, int n, int b,
                            nullptr, b, g, lines);
 }
 
-template <int SR, class T>
-__global__ void __launch_bounds__(Panel::kThreads)
-fw_colpanel(const T* __restrict__ d, const float* __restrict__ apiv,
-            float* __restrict__ colt, float* __restrict__ rowp, int n, int b, int o, int np) {
-  __shared__ __align__(16) float smem[kPanelSmemFloats];
+// The k-major operands of col'^T, and the row panel, 32 x 32 at a time:
+// coln[k][i] = D[i][o + k] (the column panel transposed) and rowp[k][i] =
+// D[o + k][i] for i < n, k < b; apv[k][j] = A*[k][j] for j < b, in rows of
+// pitch bp (apiv's rows, of pitch b, are 16-byte aligned only when 4
+// divides b).
+template <class T>
+__global__ void __launch_bounds__(256)
+fw_panels(const T* __restrict__ d, const float* __restrict__ apiv, float* __restrict__ coln,
+          float* __restrict__ rowp, float* __restrict__ apv, int n, int b, int o, int np,
+          int bp) {
+  __shared__ float tile[32][33];
   const int g = blockIdx.z;
-  const int m0 = blockIdx.y * PM, n0 = blockIdx.x * PN;
-  const int t = threadIdx.x;
+  const int i0 = blockIdx.x * 32, k0 = blockIdx.y * 32;
+  const int tx = threadIdx.x;
   const T* dg = d + (long long)g * n * n;
-  float acc[PT][PT];
-#pragma unroll
-  for (int i = 0; i < PT; ++i)
-#pragma unroll
-    for (int jj = 0; jj < PT; ++jj) acc[i][jj] = Semiring<SR>::zero();
-  fold_tile<SR, PM, PN, PK, PT, PT>(acc, dg + o, n, apiv + (long long)g * b * b, b,
-                                    m0, n0, n, b, b, smem);
-  // fold_tile ends on a barrier: its shared memory now takes the tile
-  // transposed, [column][row], so that the stores below are row runs.
-#pragma unroll
-  for (int i = 0; i < PT; ++i)
-#pragma unroll
-    for (int jj = 0; jj < PT; ++jj)
-      smem[(Panel::col(t) + jj) * kPanelPitch + Panel::row(t) + i] =
-          Storage<T>::round(acc[i][jj]);
-  __syncthreads();
-  float* cg = colt + (long long)g * b * np;
-  for (int e = t; e < PM * PN; e += Panel::kThreads) {
-    const int c = e / PM, r = e % PM;
-    if (n0 + c < b && m0 + r < n) cg[(long long)(n0 + c) * np + m0 + r] = smem[c * kPanelPitch + r];
+  for (int r = threadIdx.y; r < 32; r += 8) {
+    const int i = i0 + r, k = k0 + tx;
+    tile[r][tx] = (i < n && k < b) ? Storage<T>::load(dg[(long long)i * n + o + k]) : 0.0f;
   }
+  __syncthreads();
+  const long long off = (long long)g * b * np;
+  for (int r = threadIdx.y; r < 32; r += 8) {
+    const int k = k0 + r, i = i0 + tx;
+    if (k < b && i < n) {
+      coln[off + (long long)k * np + i] = tile[tx][r];
+      rowp[off + (long long)k * np + i] = Storage<T>::load(dg[(long long)(o + k) * n + i]);
+      if (i < b) apv[((long long)g * b + k) * bp + i] = apiv[((long long)g * b + k) * b + i];
+    }
+  }
+}
 
-  // Columns m0..m0+PM of the pivot row panel, copied once per row tile.
-  if (blockIdx.x == 0) {
-    float* rg = rowp + (long long)g * b * np;
-    for (int e = t; e < b * PM; e += Panel::kThreads) {
-      const int r = e / PM, c = m0 + e % PM;
-      if (c < n) rg[(long long)r * np + c] = Storage<T>::load(dg[(long long)(o + r) * n + c]);
+// col'^T = A*^T ⊗ colpanel^T (⊗ commutes in every built-in semiring, so
+// each candidate has col''s bits), written as rows of colt: CTAs over
+// (G, B/64, N/128) output tiles fold apv against coln over k = 0..B on the
+// ring, as fw_update does, and round to the storage type as the TPU kernel
+// rounds col'.
+template <int SR, class T>
+__global__ void __launch_bounds__(Ring::kThreads, 3)
+fw_colpanel(const float* __restrict__ apv, const float* __restrict__ coln,
+            float* __restrict__ colt, int n, int b, int np, int bp) {
+  extern __shared__ float4 smem4[];
+  const int g = blockIdx.z;
+  const int m0 = blockIdx.y * UM, n0 = blockIdx.x * UN;
+  const int t = threadIdx.x;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) acc[i][jj] = Semiring<SR>::zero();
+  const long long off = (long long)g * b * np;
+  fold_ring<SR, UM, UN, UK, kStages>(acc, apv + (long long)g * b * bp, bp, coln + off, np, m0,
+                                     n0, b, reinterpret_cast<float*>(smem4));
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = m0 + Ring::row(t, i);
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int c = n0 + Ring::col(t, jj);
+      if (r < b && c < n) colt[off + (long long)r * np + c] = Storage<T>::round(acc[i][jj]);
     }
   }
 }
@@ -169,9 +187,14 @@ struct ClosePlan {
   int cluster, rows, threads, shared;
 };
 
+struct Scratch {
+  float *apiv, *colt, *rowp, *coln, *apv;
+};
+
 template <int SR, class T>
-cudaError_t launch_round(T* d, float* apiv, float* colt, float* rowp, int g, int n, int b,
-                         int o, int np, ClosePlan plan, int* lines, cudaStream_t s) {
+cudaError_t launch_round(T* d, const Scratch& w, int g, int n, int b, int o, int np, int bp,
+                         ClosePlan plan, int* lines, cudaStream_t s) {
+  float* apiv = w.apiv;
   cudaError_t err =
       b > kCloseMaxB
           ? launch_grid_close(fw_closure_grid<SR, T>, (long long)g * b, lines, s,
@@ -179,28 +202,34 @@ cudaError_t launch_round(T* d, float* apiv, float* colt, float* rowp, int g, int
           : launch_clusters(fw_closure<SR, T>, g, plan.cluster, plan.threads, plan.shared, s,
                             static_cast<const T*>(d), apiv, n, b, o, plan.rows);
   if (err != cudaSuccess) return err;
-  const dim3 panel((b + PN - 1) / PN, (n + PM - 1) / PM, g);
-  fw_colpanel<SR, T><<<panel, Panel::kThreads, 0, s>>>(d, apiv, colt, rowp, n, b, o, np);
+  fw_panels<T><<<dim3((n + 31) / 32, (b + 31) / 32, g), dim3(32, 8), 0, s>>>(
+      d, apiv, w.coln, w.rowp, w.apv, n, b, o, np, bp);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(fw_colpanel<SR, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             Ring::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 panel((n + UN - 1) / UN, (b + UM - 1) / UM, g);
+  fw_colpanel<SR, T><<<panel, Ring::kThreads, Ring::kSmemBytes, s>>>(w.apv, w.coln, w.colt, n,
+                                                                     b, np, bp);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   err = cudaFuncSetAttribute(fw_update<SR, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              Ring::kSmemBytes);
   if (err != cudaSuccess) return err;
   const dim3 update((n + UN - 1) / UN, (n + UM - 1) / UM, g);
-  fw_update<SR, T><<<update, Ring::kThreads, Ring::kSmemBytes, s>>>(d, colt, rowp, n, b, np);
+  fw_update<SR, T><<<update, Ring::kThreads, Ring::kSmemBytes, s>>>(d, w.colt, w.rowp, n, b,
+                                                                    np);
   return cudaGetLastError();
 }
 
 template <class T>
-cudaError_t dispatch(int semiring, void* d, void* apiv, void* colt, void* rowp, int g, int n,
-                     int b, int o, int np, ClosePlan plan, int* li, cudaStream_t s) {
+cudaError_t dispatch(int semiring, void* d, const Scratch& w, int g, int n, int b, int o,
+                     int np, int bp, ClosePlan plan, int* li, cudaStream_t s) {
   T* dd = static_cast<T*>(d);
-  float *a = static_cast<float*>(apiv), *c = static_cast<float*>(colt),
-        *r = static_cast<float*>(rowp);
   switch (semiring) {
-    case 0: return launch_round<0, T>(dd, a, c, r, g, n, b, o, np, plan, li, s);
-    case 1: return launch_round<1, T>(dd, a, c, r, g, n, b, o, np, plan, li, s);
-    case 2: return launch_round<2, T>(dd, a, c, r, g, n, b, o, np, plan, li, s);
-    case 3: return launch_round<3, T>(dd, a, c, r, g, n, b, o, np, plan, li, s);
+    case 0: return launch_round<0, T>(dd, w, g, n, b, o, np, bp, plan, li, s);
+    case 1: return launch_round<1, T>(dd, w, g, n, b, o, np, bp, plan, li, s);
+    case 2: return launch_round<2, T>(dd, w, g, n, b, o, np, bp, plan, li, s);
+    case 3: return launch_round<3, T>(dd, w, g, n, b, o, np, bp, plan, li, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -208,27 +237,31 @@ cudaError_t dispatch(int semiring, void* d, void* apiv, void* colt, void* rowp, 
 }  // namespace repro_torch
 
 // C interface for ctypes.  d: (g, n, n) contiguous storage, float32
-// (bf16 == 0) or bf16 (bf16 == 1); apiv (g, b, b), colt (g, b, np) and rowp
-// (g, b, np) are float32 scratch, np a multiple of 32 that is >= n.  The
+// (bf16 == 0) or bf16 (bf16 == 1); apiv (g, b, b), colt, rowp and coln
+// (g, b, np), and apv (g, b, bp) are float32 scratch, np a multiple of 32
+// that is >= n, bp one that is >= b.  The
 // closure's launch plan (cluster, rows, threads, shared) comes from the
 // wrapper and is checked here: the cluster closure's (close_plan_ok) for
 // b <= 256, the grid closure's (grid_plan_ok) above, which also takes
 // `lines`, int32 scratch of grid_lines_words(b, g, false) words (null for
 // b <= 256).  Returns a cudaError_t.
 extern "C" int fw_round_launch(int semiring, int bf16, void* d, void* apiv, void* colt,
-                               void* rowp, int g, int n, int b, int o, int np, int cluster,
-                               int rows, int threads, int shared, void* lines, void* stream) {
+                               void* rowp, void* coln, void* apv, int g, int n, int b, int o,
+                               int np, int bp, int cluster, int rows, int threads, int shared,
+                               void* lines, void* stream) {
   using namespace repro_torch;
   const bool plan_ok = b <= kCloseMaxB ? close_plan_ok(b, false, cluster, rows, threads, shared)
                                        : grid_plan_ok(b, cluster, rows, threads, shared) && lines;
   if (g < 1 || n < 1 || b < 1 || n % b != 0 || o < 0 || o % b != 0 || o >= n || np < n ||
-      np % 32 != 0 || !plan_ok)
+      np % 32 != 0 || bp < b || bp % 32 != 0 || !plan_ok)
     return cudaErrorInvalidValue;
   const ClosePlan plan{cluster, rows, threads, shared};
+  const Scratch w{static_cast<float*>(apiv), static_cast<float*>(colt), static_cast<float*>(rowp),
+                  static_cast<float*>(coln), static_cast<float*>(apv)};
   int* li = static_cast<int*>(lines);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? dispatch<__nv_bfloat16>(semiring, d, apiv, colt, rowp, g, n, b, o, np, plan, li, s)
-              : dispatch<float>(semiring, d, apiv, colt, rowp, g, n, b, o, np, plan, li, s);
+  return bf16 ? dispatch<__nv_bfloat16>(semiring, d, w, g, n, b, o, np, bp, plan, li, s)
+              : dispatch<float>(semiring, d, w, g, n, b, o, np, bp, plan, li, s);
 }
 
 // The cluster size the latest fw_closure launch ran on, read from the card

@@ -22,11 +22,12 @@ paths agree exactly.
   (``ops.backend``).
 
 ``rounds`` counts the calls of :func:`fw_round_cuda` that launched the
-kernel's round (three grids each: the closure, ``fw_colpanel`` and
-``fw_update``; the closure is the cluster closure ``fw_closure`` up to
-B = 256 and the grid closure ``fw_closure_grid`` above).  The wrapper
-computes the closure's launch plan (``fw_block.closure_launch``) and the
-scratches (:func:`scratch_shapes`, rows of pitch :func:`pitch`).
+kernel's round (four grids each: the closure, ``fw_panels``,
+``fw_colpanel`` and ``fw_update``; the closure is the cluster closure
+``fw_closure`` up to B = 256 and the grid closure ``fw_closure_grid``
+above).  The wrapper computes the closure's launch plan
+(``fw_block.closure_launch``) and the scratches (:func:`scratch_shapes`,
+rows of pitch :func:`pitch`).
 """
 
 from __future__ import annotations
@@ -48,19 +49,21 @@ rounds = 0
 
 
 def pitch(n: int) -> int:
-    """Row pitch Np of the col'^T and row-panel scratches: N rounded up to a
-    multiple of 32 floats, so that every row starts 16-byte aligned for the
-    update's 16-byte asynchronous copies whatever N is."""
+    """Row pitch of the scratches that the ring reads: N (or B) rounded up
+    to a multiple of 32 floats, so that every row starts 16-byte aligned for
+    the 16-byte asynchronous copies whatever N is."""
     return -(-n // 32) * 32
 
 
 def scratch_shapes(g: int, n: int, b: int) -> dict:
     """Shapes of the f32 scratches of one round of G graphs of N nodes at
-    tile B: the closed pivots ``apiv`` (G, B, B), col'^T ``colt`` and the
-    row-panel copy ``rowp`` (G, B, Np), and, above ``MAX_BLOCK``, the grid
-    closure's int32 ``lines`` (``fw_block.grid_lines_words``)."""
+    tile B: the closed pivots ``apiv`` (G, B, B) and their copy ``apv``
+    (G, B, Bp), col'^T ``colt``, the row-panel copy ``rowp`` and the
+    transposed column panel ``coln`` (G, B, Np), and, above ``MAX_BLOCK``,
+    the grid closure's int32 ``lines`` (``fw_block.grid_lines_words``)."""
     np_ = pitch(n)
-    shapes = {"apiv": (g, b, b), "colt": (g, b, np_), "rowp": (g, b, np_)}
+    shapes = {"apiv": (g, b, b), "colt": (g, b, np_), "rowp": (g, b, np_),
+              "coln": (g, b, np_), "apv": (g, b, pitch(b))}
     if b > MAX_BLOCK:
         shapes["lines"] = (grid_lines_words(b, g),)
     return shapes
@@ -106,20 +109,19 @@ def fw_round_cuda(
     from . import _build
 
     fn = _build.load("fw_round").fw_round_launch
-    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4 + [
-        ctypes.c_int] * 9 + [ctypes.c_void_p] * 2
+    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6 + [
+        ctypes.c_int] * 10 + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     shapes = scratch_shapes(g, n, b)
     f32 = dict(dtype=torch.float32, device=d.device)
-    apiv = torch.empty(shapes["apiv"], **f32)
-    colt = torch.empty(shapes["colt"], **f32)
-    rowp = torch.empty(shapes["rowp"], **f32)
+    w = {k: torch.empty(shapes[k], **f32) for k in ("apiv", "colt", "rowp", "coln", "apv")}
     lines = (torch.empty(shapes["lines"], dtype=torch.int32, device=d.device)
              if "lines" in shapes else None)
     stream = torch.cuda.current_stream(d.device).cuda_stream
-    err = fn(code, int(d.dtype == torch.bfloat16), d.data_ptr(), apiv.data_ptr(),
-             colt.data_ptr(), rowp.data_ptr(), g, n, b, o, shapes["colt"][-1],
-             *closure_launch(b), None if lines is None else lines.data_ptr(), stream)
+    err = fn(code, int(d.dtype == torch.bfloat16), d.data_ptr(),
+             *(w[k].data_ptr() for k in ("apiv", "colt", "rowp", "coln", "apv")), g, n, b, o,
+             shapes["colt"][-1], shapes["apv"][-1], *closure_launch(b),
+             None if lines is None else lines.data_ptr(), stream)
     if err:
         raise RuntimeError(f"fw_round kernel launch failed: cudaError_t {err}")
     rounds += 1

@@ -228,8 +228,11 @@ def row_restricted_close(
     depend on its order).  The panel runs as the ``row_close`` kernel on a
     CUDA tensor and as its plain version on a CPU tensor; bf16 state is
     upcast and the panel rounded once.  With ``pred`` the witness decides
-    the panel's predecessors by :func:`pred_from_kstar` (the contraction
-    indexes nodes), the old ones where nothing improved.
+    the panel's predecessors by :func:`pred_from_kstar`'s rule (the
+    contraction indexes nodes), the old ones where nothing improved: on a
+    CUDA tensor one ``row_close_pred`` launch derives them in its epilogue;
+    on a CPU tensor the plain version runs the witness fold and then the
+    rule's gathers.
 
     Returns new full (dist, pred) tensors, as the JAX pass does: clones of
     the inputs with the panel written back (``index_copy_``) after the
@@ -238,15 +241,17 @@ def row_restricted_close(
     sr = get_semiring(semiring)
     _check_mixed(sr, dist)
     rows = rows.to(device=dist.device, dtype=torch.int32).contiguous()
-    fn = _row_close.row_close_cuda if backend(dist) == "cuda" else _row_close.row_close_torch
-    z, kstar = fn(*_f32(dist), rows, track=pred is not None, semiring=sr)
+    cuda = backend(dist) == "cuda"
+    (d,) = _f32(dist)
+    if pred is None:
+        fn = _row_close.row_close_cuda if cuda else _row_close.row_close_torch
+        z, pz = fn(d, rows, semiring=sr)
+    else:
+        fn = _row_close.row_close_pred_cuda if cuda else _row_close.row_close_pred_torch
+        z, pz = fn(d, rows, pred.to(torch.int32).contiguous(), semiring=sr)
     idx = rows.long()
     out = dist.clone().index_copy_(0, idx, z.to(dist.dtype))
-    if pred is None:
-        return out, None
-    ppanel = pred.index_select(0, idx)
-    pz = pred_from_kstar(kstar, ppanel, pred, fallback=ppanel)
-    return out, pred.clone().index_copy_(0, idx, pz)
+    return out, None if pz is None else pred.clone().index_copy_(0, idx, pz.to(pred.dtype))
 
 
 def fw_block(d: torch.Tensor, *, semiring: SemiringLike = "tropical") -> torch.Tensor:

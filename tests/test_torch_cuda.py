@@ -19,7 +19,7 @@ import torch
 from oracle import generate
 
 from repro_torch.core import DynamicAPSP, Semiring, generate_edge_updates, generate_np, init_pred, solve
-from repro_torch.core.semiring import TROPICAL
+from repro_torch.core.semiring import TROPICAL, get_semiring
 from repro_torch.kernels import ops
 
 # The kernel submodules by module path: ``repro_torch.kernels.fw_block``,
@@ -337,13 +337,22 @@ def test_ops_bf16_on_card_matches_cpu(cuda):
     assert torch.equal(ops.minplus(x.to(cuda), y.to(cuda)).cpu(), ops.minplus(x, y))
 
 
-def _row_close_pair(d, rows, semiring, track):
-    before = rc.launches["row_close"]
-    got = rc.row_close_cuda(d, rows, track=track, semiring=semiring)
-    assert rc.launches["row_close"] == before + 1
-    want = rc.row_close_torch(d, rows, track=track, semiring=semiring)
+def _row_close_pair(d, rows, semiring, track, pred=None):
+    """One launch of a row_close mode (value, witness, or preds when
+    ``pred`` is given) against its plain version: equal, and counted once
+    under its mode."""
+    name = "row_close_pred" if pred is not None else "row_close_argmin" if track else "row_close"
+    before = dict(rc.launches)
+    if pred is not None:
+        got = rc.row_close_pred_cuda(d, rows, pred, semiring=semiring)
+        want = rc.row_close_pred_torch(d, rows, pred, semiring=semiring)
+    else:
+        got = rc.row_close_cuda(d, rows, track=track, semiring=semiring)
+        want = rc.row_close_torch(d, rows, track=track, semiring=semiring)
     torch.cuda.synchronize()
-    return _same(got[0], want[0]) and (not track or torch.equal(got[1], want[1]))
+    assert rc.launches == {**before, name: before[name] + 1}
+    return _same(got[0], want[0]) and (got[1] is None) == (want[1] is None) and (
+        got[1] is None or torch.equal(got[1], want[1]))
 
 
 @pytest.mark.parametrize("semiring", SEMIRINGS)
@@ -367,6 +376,46 @@ def test_row_close_kernel_ties_and_nan(cuda, track):
     assert _row_close_pair(d, rows, "tropical", track)
 
 
+@pytest.mark.parametrize("mode", ["row_close", "row_close_argmin", "row_close_pred"])
+@pytest.mark.parametrize("semiring", SEMIRINGS)
+@pytest.mark.parametrize("r", [1, 4, 16, 64, 128, 129, 1024])
+@pytest.mark.parametrize("n", [255, 1030])
+def test_row_close_modes_match_plain(cuda, mode, semiring, r, n):
+    """Each mode against its plain version on every tile height, with k
+    whole (n = 255) and split (n = 1030; neither is a multiple of 4, so the
+    ring reads an aligned copy of d), with repeated row ids, ties, and NaN
+    candidates and start values where the semiring's ⊗ keeps them."""
+    rng = np.random.default_rng(r + n)
+    d = _mat(rng, (n, n), semiring, ties=True, density=0.3)
+    d.fill_diagonal_(get_semiring(semiring).one)
+    if semiring in ("tropical", "bottleneck"):
+        d[3, 17] = d[100, 5] = d[n - 1, n - 1] = float("nan")
+    d = d.to(cuda)
+    rows = torch.from_numpy(rng.integers(0, n, r).astype(np.int32))
+    rows[:: 3] = rows[0]                     # repeated row ids
+    rows[-1] = 3
+    rows = rows.to(cuda)
+    pred = init_pred(d, semiring) if mode == "row_close_pred" else None
+    plan = rc.launch_plan(r, n, mode != "row_close")
+    assert (plan.chunks > 1) == (n > 1000)
+    assert _row_close_pair(d, rows, semiring, mode == "row_close_argmin", pred)
+
+
+def test_row_close_pred_is_the_witness_through_pred_from_kstar(cuda):
+    """The pred mode's preds are the witness mode's K* through
+    pred_from_kstar, on the card, at a split and an unsplit plan."""
+    rng = np.random.default_rng(4)
+    h = torch.from_numpy(generate_np(rng, 2051, rho=20.0).h).to(cuda)
+    p = init_pred(h)
+    for r in (16, 1500):
+        rows = torch.from_numpy(rng.choice(2051, r, replace=False).astype(np.int32)).to(cuda)
+        z, ks = rc.row_close_cuda(h, rows, track=True)
+        zp, pz = rc.row_close_pred_cuda(h, rows, p)
+        ppanel = p.index_select(0, rows.long())
+        assert torch.equal(z, zp) and bool((ks >= 0).any())
+        assert torch.equal(pz, ops.pred_from_kstar(ks, ppanel, p, fallback=ppanel))
+
+
 def test_row_close_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     d = torch.zeros((64, 64), device=cuda)
     rows = torch.tensor([0, 3], dtype=torch.int32, device=cuda)
@@ -382,6 +431,15 @@ def test_row_close_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         rc.row_close_cuda(d[:, :32], rows)
     with pytest.raises(ValueError):
         rc.row_close_cuda(d, rows.cpu())
+    p = torch.zeros((64, 64), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        rc.row_close_pred_cuda(d, rows, p.long())
+    with pytest.raises(ValueError):
+        rc.row_close_pred_cuda(d, rows, p[:32])
+    with pytest.raises(ValueError):
+        rc.row_close_pred_cuda(d, rows, p.cpu())
+    with pytest.raises(ValueError):
+        rc.row_close_pred_cuda(d, rows, p.t())
 
 
 @pytest.mark.parametrize("with_pred", [False, True])
@@ -393,8 +451,12 @@ def test_row_restricted_close_on_card_matches_cpu(cuda, with_pred, dtype):
     p = init_pred(d) if with_pred else None
     rows = torch.tensor([3, 7, 7, 200, 299, 3], dtype=torch.int32)
     want = ops.row_restricted_close(d, rows, pred=p)
+    before = dict(rc.launches)
     got = ops.row_restricted_close(d.to(cuda), rows.to(cuda),
                                    pred=None if p is None else p.to(cuda))
+    torch.cuda.synchronize()
+    mode = "row_close_pred" if with_pred else "row_close"
+    assert rc.launches == {**before, mode: before[mode] + 1}   # never row_close_argmin
     assert not torch.equal(want[0], d)
     assert torch.equal(got[0].cpu(), want[0])
     assert not with_pred or torch.equal(got[1].cpu(), want[1])
@@ -408,7 +470,7 @@ def test_dynamic_stream_on_card_matches_cpu(cuda, with_pred, row_threshold):
     kw = dict(with_pred=with_pred, resolve_threshold=1.0, row_threshold=row_threshold)
     card, host = DynamicAPSP(h, **kw), DynamicAPSP(h, device="cpu", **kw)
     assert card.dist.is_cuda and card.device.type == "cuda"
-    rc.launches["row_close"] = 0
+    rc.launches.update(dict.fromkeys(rc.launches, 0))
     mp.launches.update(minplus=0, minplus_argmin=0, minplus_pred=0)
     for wf in (0.0, 0.5, 1.0, 0.5):
         batch = generate_edge_updates(rng, host.h, 16, worsen_frac=wf)
@@ -417,9 +479,11 @@ def test_dynamic_stream_on_card_matches_cpu(cuda, with_pred, row_threshold):
         assert not with_pred or torch.equal(card.pred.cpu(), host.pred)
     assert card.stats == host.stats and card.stats["rank_k"] >= 1
     if row_threshold:
-        assert card.stats["row_iters"] >= 1 and rc.launches["row_close"] == card.stats["row_iters"]
+        mode = "row_close_pred" if with_pred else "row_close"
+        assert card.stats["row_iters"] >= 1 and rc.launches == {
+            **dict.fromkeys(rc.launches, 0), mode: card.stats["row_iters"]}
     else:
-        assert card.stats["warm_resolve"] >= 1 and rc.launches["row_close"] == 0
+        assert card.stats["warm_resolve"] >= 1 and not any(rc.launches.values())
     assert mp.launches["minplus_argmin" if with_pred else "minplus"] > 0
 
 

@@ -7,7 +7,10 @@ scratches (``fw_round.scratch_shapes``, rows of pitch ``fw_round.pitch``).
 The kernels check the same conditions (``close_plan_ok`` and
 ``grid_plan_ok`` in ``csrc/fw_closure.cuh``, the pitch test in
 ``fw_round_launch``) and refuse a plan that fails them; these tests hold
-the plans to them on the CPU, for every tile size the kernels take.
+the plans to them on the CPU, for every tile size the kernels take.  The
+row-close pass's plan (``row_close.launch_plan``: its tile, its k chunks
+and its scratch; ``plan_ok`` in ``csrc/row_close.cu``) is held the same
+way.
 """
 
 import importlib
@@ -20,6 +23,7 @@ import pytest
 # the ops functions of those names, as in ``repro.kernels``.
 fb = importlib.import_module("repro_torch.kernels.fw_block")
 fr = importlib.import_module("repro_torch.kernels.fw_round")
+rc = importlib.import_module("repro_torch.kernels.row_close")
 
 CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "kernels" / "csrc"
 SHARED_PER_CTA = 227 * 1024      # the H100's 227 KB (232,448 bytes)
@@ -171,11 +175,112 @@ def test_grid_closure_scratch(b, tiles, pred):
 @pytest.mark.parametrize("b", GRID_B)
 @pytest.mark.parametrize("g", [1, 3])
 def test_round_scratch_shapes(b, g):
-    """fw_round's scratches at B > 256: (G, B, B) pivots, (G, B, Np) col'^T
-    and row panel, and the grid closure's lines; none of it B-limited."""
+    """fw_round's scratches at B > 256: (G, B, B) pivots and their copy in
+    rows of a 16-byte pitch, (G, B, Np) col'^T, row panel and transposed
+    column panel, and the grid closure's lines; none of it B-limited."""
     n = 2 * b
     shapes = fr.scratch_shapes(g, n, b)
     np_ = fr.pitch(n)
     assert shapes == {"apiv": (g, b, b), "colt": (g, b, np_), "rowp": (g, b, np_),
+                      "coln": (g, b, np_), "apv": (g, b, fr.pitch(b)),
                       "lines": (fb.grid_lines_words(b, g),)}
     assert "lines" not in fr.scratch_shapes(g, 512, 256)
+
+
+# The row-close pass (csrc/row_close.cu): row lists the engine sends, from
+# one row to a long list, sampled densely where the tile and the split
+# change, on matrices of every class of n (1, below and above a tile, not a
+# multiple of 4, the engine's 8192).
+ROW_CLOSE_R = sorted(set(range(1, 70)) | {95, 96, 127, 128, 129, 200, 255, 256, 257, 511,
+                                          512, 513, 1000, 1023, 1024, 1025, 1500, 2047, 2048})
+ROW_CLOSE_N = [1, 3, 63, 64, 65, 8191, 8192]
+
+
+def _row_close_constant(name: str) -> int:
+    m = re.search(rf"\b{name} = (\d+)", (CSRC / "row_close.cu").read_text())
+    assert m, name
+    return int(m.group(1))
+
+
+@pytest.mark.parametrize("track", [False, True])
+@pytest.mark.parametrize("n", ROW_CLOSE_N)
+def test_row_close_plan_owns_every_output_and_k_once(n, track):
+    """Row tiles, column tiles and k chunks partition (r, n, n): every
+    (row, column, k) is folded by exactly one CTA, no chunk is empty, every
+    chunk but the last is whole slices long, and the grid fits CUDA's
+    limits."""
+    for r in ROW_CLOSE_R:
+        plan = rc.launch_plan(r, n, track)
+        rows = [i for m0 in range(0, -(-r // plan.rows) * plan.rows, plan.rows)
+                for i in range(m0, min(r, m0 + plan.rows))]
+        cols = [j for n0 in range(0, -(-n // plan.cols) * plan.cols, plan.cols)
+                for j in range(n0, min(n, n0 + plan.cols))]
+        ks = [k for c in range(plan.chunks) for k in plan.k_of(c, n)]
+        assert rows == list(range(r)) and cols == list(range(n)) and ks == list(range(n))
+        assert all(len(plan.k_of(c, n)) for c in range(plan.chunks)), (r, n)
+        assert plan.chunk % plan.depth == 0 and plan.chunks <= 65535
+        assert -(-r // plan.rows) <= 65535 and -(-n // 32) <= 65535
+
+
+@pytest.mark.parametrize("track", [False, True])
+@pytest.mark.parametrize("n", ROW_CLOSE_N)
+def test_row_close_plan_scratch(n, track):
+    """The scratch bytes of the plan hold every element the kernels address:
+    the k-major copy of d[rows] (n rows of the pitch, r rounded up to 32,
+    the gather's 32-row tiles), the partial (value, k) planes (chunks, r, n)
+    when k is split, and the 16-byte-pitch copy of d when n is not a
+    multiple of 4."""
+    for r in ROW_CLOSE_R:
+        plan = rc.launch_plan(r, n, track)
+        assert plan.pitch % 32 == 0 and r <= plan.pitch < r + 32
+        xt = n * plan.pitch                           # xt[k][i], k < n, i < pitch
+        assert (n - 1) * plan.pitch + plan.pitch - 1 < xt
+        partial = 0
+        if plan.chunks > 1:
+            last = ((plan.chunks - 1) * r + r - 1) * n + n - 1
+            partial = plan.chunks * r * n
+            assert last < partial
+        aligned = n * (-(-n // 32) * 32) if n % 4 else 0
+        assert plan.scratch_bytes == 4 * (xt + partial * (2 if track else 1) + aligned)
+
+
+@pytest.mark.parametrize("track", [False, True])
+def test_row_close_tiles_fit_the_kernel(track):
+    """The tiles row_close_launch takes (Tile in csrc/row_close.cu): 16, 32
+    or 64 rows by the list's length, 128 threads of 8 x 8 outputs (8 x 4
+    with a witness), a ring of three slices that leaves room for three CTAs
+    an SM (CTAS_PER_SM, the kernels' kMinBlocks) in the SM's 228 KB."""
+    assert rc.CTAS_PER_SM == _row_close_constant("kMinBlocks")
+    threads = _row_close_constant("kThreads")
+    tn = 4 if track else 8
+    for r in ROW_CLOSE_R:
+        plan = rc.launch_plan(r, 8192, track)
+        assert plan.rows == (16 if r <= 16 else 32 if r <= 32 else 64)
+        assert (plan.rows // 8) * (plan.cols // tn) == threads
+        ring = 3 * plan.depth * (plan.rows + plan.cols) * 4
+        assert rc.CTAS_PER_SM * (ring + 1024) <= 228 * 1024
+        assert plan.depth * plan.cols // 4 % threads == 0        # whole 16-byte chunks
+
+
+@pytest.mark.parametrize("track", [False, True])
+def test_row_close_plan_fills_the_card(track):
+    """At the engine's n the grid fills at least WAVE_FILL of its last wave
+    of CTAS_PER_SM * SMs CTAs, k splits only where the row tiles alone do
+    not, and every chunk is at least MIN_CHUNK long."""
+    n, sms = 8192, 132
+    wave = rc.CTAS_PER_SM * sms
+    for r in ROW_CLOSE_R:
+        plan = rc.launch_plan(r, n, track, sms)
+        tiles = -(-r // plan.rows) * -(-n // plan.cols)
+        ctas = tiles * plan.chunks
+        assert ctas / (-(-ctas // wave) * wave) >= rc.WAVE_FILL, r
+        assert plan.chunks == 1 or tiles / (-(-tiles // wave) * wave) < rc.WAVE_FILL
+        assert plan.chunks == 1 or len(plan.k_of(0, n)) >= rc.MIN_CHUNK
+    assert rc.launch_plan(4096, n, track, sms).chunks == 1
+    assert rc.launch_plan(16, n, track, sms).chunks > 1
+
+
+@pytest.mark.parametrize("r,n", [(0, 8), (4, 0)])
+def test_row_close_plan_rejects_empty_operands(r, n):
+    with pytest.raises(ValueError):
+        rc.launch_plan(r, n, True)

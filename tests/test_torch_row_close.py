@@ -1,7 +1,9 @@
 """The port's row-restricted pass (``repro_torch.kernels.row_close`` and
 ``ops.row_restricted_close``) against the JAX package's: the TPU kernel
 ``row_close_pallas`` in interpret mode, and ``ops.row_restricted_close`` on
-its XLA and interpret backends.
+its XLA and interpret backends (with preds, against the plain pred mode
+``row_close_pred_torch``).  A torch emulation of the kernel's split-k merge
+is held against the unsplit fold.
 
 Inputs are made with numpy from a seed and handed to both packages; bf16
 crosses as its bit view.  Tolerance: exact (``np.array_equal``) for values,
@@ -22,6 +24,8 @@ from repro_torch.core import init_pred
 from repro_torch.core.convert import to_numpy, to_torch
 from repro_torch.kernels import ops
 from repro_torch.kernels import row_close as rc
+from repro_torch.core.semiring import get_semiring
+from repro_torch.kernels.minplus import minplus_argmin_torch, minplus_torch
 from repro_torch.kernels.row_close import row_close_torch
 
 SEMIRINGS = ["tropical", "bottleneck", "reliability", "boolean"]
@@ -149,3 +153,66 @@ def test_plain_row_ids_out_of_range_raise_and_count_no_launch():
     with pytest.raises(IndexError):
         row_close_torch(t(state(1, 8, "tropical")), torch.tensor([0, 8], dtype=torch.int32))
     assert rc.launches["row_close"] == before
+
+
+@pytest.mark.parametrize("semiring", SEMIRINGS)
+@pytest.mark.parametrize("r", [1, 3, 4, 16, 33])
+@pytest.mark.parametrize("ties", [False, True])
+def test_plain_pred_matches_jax_ops(jax_backend, semiring, r, ties):
+    """The plain pred mode (the witness fold, then pred_from_kstar) against
+    the JAX pass with preds: the panel rows of its new dist and pred."""
+    n = 40
+    d = state(3 * r + n, n, semiring, ties)
+    rows = row_ids(r + 7, n, r)
+    p = init_pred(t(d), semiring)
+    want_d, want_p = jax_ops.row_restricted_close(
+        jnp.asarray(d), jnp.asarray(rows), pred=jnp.asarray(p.numpy()), semiring=semiring)
+    z, pz = rc.row_close_pred_torch(t(d), t(rows), p, semiring=semiring)
+    assert same(z.numpy(), np.asarray(want_d)[rows])
+    assert pz.dtype == torch.int32 and same(pz.numpy(), np.asarray(want_p)[rows])
+
+
+def split_fold(d, rows, chunk, track, semiring):
+    """What the kernel does with k split into chunks of ``chunk``: each chunk
+    folded from the semiring zero into a partial (value, global k), the
+    partials folded in ascending chunk order from the zero with the strict
+    better, then the start value d[rows] folded in last."""
+    sr = get_semiring(semiring)
+    x = d.index_select(0, rows.long())
+    v = torch.full(x.shape, sr.zero)
+    k = torch.full(x.shape, -1, dtype=torch.int32)
+    for k0 in range(0, d.shape[0], chunk):
+        xs, ys = x[:, k0:k0 + chunk], d[k0:k0 + chunk]
+        if track:
+            pv, pk = minplus_argmin_torch(xs, ys, semiring=sr)
+            won = sr.better(pv, v)
+            v, k = torch.where(won, pv, v), torch.where(won, torch.where(pk < 0, pk, pk + k0), k)
+        else:
+            v = sr.add(v, minplus_torch(xs, ys, semiring=sr))
+    if not track:
+        return sr.add(x, v), None
+    won = sr.better(v, x)
+    return torch.where(won, v, x), torch.where(won, k, -1)
+
+
+@pytest.mark.parametrize("semiring", SEMIRINGS)
+@pytest.mark.parametrize("track", [False, True])
+@pytest.mark.parametrize("chunk", [1, 5, 16, 33, 70])
+def test_split_merge_matches_unsplit_fold(semiring, track, chunk):
+    """The split-k merge keeps the bits of the unsplit fold: ties across
+    chunks (the first chunk's smallest k wins), chunks whose candidates are
+    all the zero, NaN candidates and NaN start values."""
+    n = 70
+    d = state(chunk, n, semiring, ties=True)
+    zero = ZERO_ONE[semiring][0]
+    d[:, 16:21] = zero                      # k 16..20: every candidate is the zero
+    d[16:21, :] = zero
+    if semiring in ("tropical", "bottleneck"):
+        d[2, 40] = d[50, 9] = np.nan        # NaN candidates and a NaN start value
+    rows = np.array([2, 9, 9, 30, 50, 69, 0], np.int32)
+    want = row_close_torch(t(d), t(rows), track=track, semiring=semiring)
+    got = split_fold(t(d), t(rows), chunk, track, semiring)
+    nan = torch.isnan(want[0])
+    assert torch.equal(nan, torch.isnan(got[0]))
+    assert torch.equal(got[0][~nan], want[0][~nan])
+    assert not track or torch.equal(got[1], want[1])
