@@ -39,6 +39,21 @@ timed in its three modes at r = 16, 64, 1024 and 2048 beside its bounds,
 and one pass with preds is traced: it launches ``row_close_pred`` only
 and holds no gather or where row.
 
+Phase 7 runs the paper's own evaluation: its 1000-graph corpus
+(``paper_corpus(seed=0)``, V ~ U[4, 1000]) through ``repro_torch.solve_batch``
+bucketed by size (``blocked_fw`` without and with predecessors,
+``squaring``, ``rkleene``) and as one (1000, 1000, 1000) stack
+(``blocked_fw`` without and with predecessors), each graph equal to its own
+card solve, bucketed equal to single stack, every 100th graph equal to
+scipy's Dijkstra and every pred tree valid; then each method at full width
+(``squaring`` at N = 4096, ``rkleene`` at N = 16384 with base 64 and 256,
+``squaring_3d`` at N = 1024, ``classic`` at N = 2048) against the blocked
+solve with its exact launch counts, a ragged G = 8 stack of every method
+under every semiring against the per-graph solves and the CPU, the kernels
+on the slice's shapes (R-Kleene quadrant views with offsets, squaring with
+aliased operands, a G = 64 round) against their plain versions, and traces
+of one squaring and one R-Kleene solve.
+
 It traces a solve of each path with ``torch.profiler`` (the pred traces
 must hold no gather row: the pred rule runs in ``minplus_pred``'s
 epilogue), holds every kernel against its plain version once more at the
@@ -729,6 +744,317 @@ def drive_dynamic(dev, card: str, n: int = 8192):
     return launches, summary, err
 
 
+METHOD_NAMES = ("squaring", "squaring_3d", "classic", "blocked_fw", "rkleene")
+# Phase 7's shapes: the reference's square_4k cell for squaring (its plain
+# pred squaring at 2048), the rkleene_16k cell's N on one card, the paper's
+# own N = 1024 ceiling for the 3D tensor, classic at 2048, an R-Kleene
+# quadrant split of a 2000-node state, and a G = 64 batch of N = 1024.
+PAPER_N = {"squaring": 4096, "squaring plain pred": 2048, "squaring_3d": 1024, "classic": 2048,
+           "quadrants": 2000, "batch": (64, 1024)}
+# The ragged stack every method solves under every semiring.
+RAGGED = (4, 256, 17, 100, 33, 200, 7, 64)
+
+
+def rkleene_launches(n: int, base: int, pred: bool):
+    """(products, leaves) of one R-Kleene solve of n nodes: six products and
+    two halves a level above ``base``, on the grid the solver pads to."""
+    rk = importlib.import_module("repro_torch.core.rkleene")
+
+    def count(m):
+        if m <= base:
+            return 0, 1
+        half = m // 2 if pred else rk.split_point(m, base)
+        p1, l1 = count(half)
+        p2, l2 = count(m - half)
+        return 6 + p1 + p2, l1 + l2
+
+    return count(rk.pow2_size(n, base) if pred else rk.padded_size(n, base))
+
+
+def tree_holds(h: torch.Tensor, dist: torch.Tensor, pred: torch.Tensor) -> bool:
+    """``validate_tree``'s invariant, tropical, on the card, for states too
+    large to check on the host: every reachable dist[i, j] (i != j) is
+    dist[i, p] + h[p, j] for p = pred[i, j], within the same tolerance."""
+    n = h.shape[0]
+    reach = torch.isfinite(dist) & ~torch.eye(n, dtype=torch.bool, device=dist.device)
+    if bool((pred[reach] < 0).any()):
+        return False
+    p = pred.clamp(min=0).long()
+    rhs = torch.gather(dist, 1, p) + h[p, torch.arange(n, device=h.device)[None, :]]
+    return bool(torch.allclose(dist[reach], rhs[reach], rtol=1e-5, atol=1e-5))
+
+
+def drive_paper(card: str, h16: torch.Tensor, blocked16_ms: float):
+    """Phase 7: the paper's evaluation on the card.  (a) Its 1000-graph
+    corpus (``paper_corpus(seed=0)``) through ``solve_batch`` bucketed
+    (``blocked_fw`` without and with preds, ``squaring``, ``rkleene``) and
+    as one stack (``blocked_fw`` without and with preds): each graph equal
+    to its own card solve, bucketed equal to single stack, every 100th
+    graph equal to scipy's Dijkstra, every pred tree valid.  (b) Each
+    method at full width on one graph, with its launch counts, and a ragged
+    G = 8 stack of every method under every semiring against the per-graph
+    solves and the CPU.  (c) The kernels on the slice's new shapes against
+    their plain versions.  (d) Traces of one squaring and one R-Kleene
+    solve.  ``h16`` is the N = 16384 graph on the card, ``blocked16_ms``
+    its blocked solve's ms at B = 256.  Returns (launches by path, largest
+    |error| by kernel, times)."""
+    import scipy.sparse
+    from scipy.sparse.csgraph import dijkstra
+
+    import repro_torch
+    from repro_torch.core import init_pred, validate_tree
+    rk = importlib.import_module("repro_torch.core.rkleene")
+    from repro_torch.core.semiring import ceil_log2
+    fb, fr, mp = kernel_module("fw_block"), kernel_module("fw_round"), kernel_module("minplus")
+
+    t_phase = time.perf_counter()
+    launches, times = {}, {}
+    errs = dict.fromkeys(("fw_round", "minplus", "minplus_pred", "fw_block", "fw_block_pred"),
+                         0.0)
+
+    def counted(label, fn, expect=None):
+        """``fn()`` with every count set to 0 just before and read just
+        after; checked against ``expect`` where given."""
+        fr.rounds = 0
+        mp.launches.update(dict.fromkeys(mp.launches, 0))
+        fb.launches.update(fw_block=0, fw_block_pred=0)
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: v for k, v in {"fw_round": fr.rounds, **mp.launches, **fb.launches}.items()
+               if v}
+        if expect is not None:
+            check(got == expect, f"{label}: launches {got}, expected {expect}")
+        launches[label] = got
+        return out
+
+    # (a) The paper's corpus: 1000 graphs, V ~ U[4, 1000], rho ~ U[0, 100].
+    t0 = time.perf_counter()
+    corpus = repro_torch.paper_corpus(seed=0)
+    hs = [torch.from_numpy(g.h).cuda() for g in corpus]
+    sizes = [g.n_nodes for g in corpus]
+    print(f"paper corpus: {len(hs)} graphs, V {min(sizes)}-{max(sizes)}, "
+          f"{sum(g.n_edges for g in corpus)} edges, made and uploaded in "
+          f"{time.perf_counter() - t0:.1f} s")
+    per_graph = counted("corpus per-graph solve", lambda: [repro_torch.solve(h).dist for h in hs])
+    times["corpus per-graph solve loop"] = cuda_ms(lambda: [repro_torch.solve(h) for h in hs])
+    runs = {  # label: (options, the kernels it launches)
+        "bucketed blocked_fw": ({"bucket_by_size": True}, {"fw_round"}),
+        "bucketed blocked_fw with_pred": ({"bucket_by_size": True, "with_pred": True},
+                                          {"fw_block_pred", "minplus_pred"}),
+        "bucketed squaring": ({"bucket_by_size": True, "method": "squaring"}, {"minplus"}),
+        "bucketed rkleene": ({"bucket_by_size": True, "method": "rkleene"},
+                             {"minplus", "fw_block"}),
+        "single stack blocked_fw": ({}, {"fw_round"}),
+        "single stack blocked_fw with_pred": ({"with_pred": True},
+                                              {"fw_block_pred", "minplus_pred"}),
+    }
+    bucketed = {}
+    tree_s = 0.0
+    for label, (options, kinds) in runs.items():
+        res = counted(f"corpus {label}", lambda: repro_torch.solve_batch(hs, **options))
+        check(set(launches[f"corpus {label}"]) == kinds,
+              f"corpus {label}: launched {launches[f'corpus {label}']}, expected {kinds}")
+        check(res.dist.is_cuda and res.dist.shape == (len(hs), max(sizes), max(sizes)),
+              f"corpus {label}: result {res.dist.device} {tuple(res.dist.shape)}")
+        for i, want in enumerate(per_graph):
+            check(torch.equal(res.unpadded(i).dist, want),
+                  f"corpus {label}: graph {i} (V={sizes[i]}) differs from its own solve")
+        if res.pred is not None and label.startswith("bucketed"):
+            t0 = time.perf_counter()
+            for i, g in enumerate(corpus):
+                u = res.unpadded(i)
+                check(validate_tree(g.h, u.dist, u.pred), f"corpus graph {i}: invalid pred tree")
+            tree_s = time.perf_counter() - t0
+        if label.startswith("bucketed blocked_fw"):
+            bucketed[label] = res
+        elif label.startswith("single stack"):
+            twin = bucketed.pop(label.replace("single stack", "bucketed"))
+            check(torch.equal(twin.dist, res.dist) and
+                  (res.pred is None or torch.equal(twin.pred, res.pred)),
+                  f"corpus {label}: differs from the bucketed solve")
+            del twin
+        del res
+        times[f"corpus {label}"] = cuda_ms(lambda: repro_torch.solve_batch(hs, **options))
+        print(f"corpus {label}: every graph equal to its own card solve; "
+              f"{times[f'corpus {label}']:.1f} ms (CUDA events, one call); launches "
+              f"{launches[f'corpus {label}']}")
+    for i in range(0, len(corpus), 100):
+        g = corpus[i]
+        off = np.isfinite(g.h) & ~np.eye(g.n_nodes, dtype=bool)
+        graph = scipy.sparse.csr_matrix((g.h[off], np.nonzero(off)), shape=g.h.shape)
+        check(np.array_equal(per_graph[i].cpu().numpy().astype(np.float64),
+                             dijkstra(graph, directed=True)),
+              f"corpus graph {i}: differs from scipy's Dijkstra")
+    del per_graph, hs
+    print(f"corpus: bucketed equal to single stack (dist and pred); every pred tree valid "
+          f"({tree_s:.1f} s on the host); graphs 0, 100, ..., 900 equal to Dijkstra; ms on "
+          f"{card}: {json.dumps(times)}")
+
+    # (b) Each method at full width on one graph of the paper's generator.
+    def graph_of(n):
+        return torch.from_numpy(
+            repro_torch.generate_np(np.random.default_rng(0), n, rho=2.0).h).cuda()
+
+    n_sq = PAPER_N["squaring"]
+    h_sq, h_pl = graph_of(n_sq), graph_of(PAPER_N["squaring plain pred"])
+    blocked_sq = repro_torch.solve(h_sq).dist
+    iters = ceil_log2(n_sq)
+    got = counted(f"squaring N={n_sq}", lambda: repro_torch.solve(h_sq, method="squaring"),
+                  {"minplus": iters})
+    check(same(got.dist, blocked_sq), f"squaring N={n_sq}: dist differs from the blocked solve's")
+    got = counted(f"squaring with_pred N={n_sq}",
+                  lambda: repro_torch.solve(h_sq, method="squaring", with_pred=True),
+                  {"minplus_pred": iters})
+    check(same(got.dist, blocked_sq) and tree_holds(h_sq, got.dist, got.pred),
+          f"squaring with_pred N={n_sq}: dist differs or the tree is invalid")
+    del got, blocked_sq
+    for options in ({}, {"with_pred": True}):
+        label = "squaring" + (" with_pred" if options else "") + f" N={n_sq}"
+        times[label] = median_ms(lambda: repro_torch.solve(h_sq, method="squaring", **options))
+    got = repro_torch.solve(h_pl, method="squaring", with_pred=True)
+    d, p = h_pl, init_pred(h_pl)
+    for _ in range(ceil_log2(h_pl.shape[0])):
+        d, p = mp.minplus_pred_torch(d, d, p, p, d, p)
+    check(same(got.dist, d) and torch.equal(got.pred, p),
+          f"squaring with_pred N={h_pl.shape[0]}: differs from the plain pred squaring")
+    del got, d, p
+    print(f"squaring N={n_sq}: {iters} minplus ({iters} minplus_pred with preds), dist equal "
+          f"to the blocked solve's, tree valid; with preds at N={h_pl.shape[0]} equal to the "
+          f"plain pred squaring on the card; {times[f'squaring N={n_sq}']:.2f} / "
+          f"{times[f'squaring with_pred N={n_sq}']:.2f} ms (median of 3)")
+
+    n16 = h16.shape[0]
+    blocked16 = repro_torch.solve(h16).dist
+    for base, pred in ((64, False), (256, False), (64, True)):
+        products, leaves = rkleene_launches(n16, base, pred)
+        label = f"rkleene{' with_pred' if pred else ''} N={n16} base={base}"
+        expect = {k: v for k, v in zip(("minplus_pred", "fw_block_pred") if pred
+                                       else ("minplus", "fw_block"), (products, leaves)) if v}
+        got = counted(label, lambda: repro_torch.solve(h16, method="rkleene", base=base,
+                                                       with_pred=pred), expect)
+        check(same(got.dist, blocked16) and (not pred or tree_holds(h16, got.dist, got.pred)),
+              f"{label}: dist differs from the blocked solve's or the tree is invalid")
+        del got
+        times[label] = median_ms(lambda: repro_torch.solve(h16, method="rkleene", base=base,
+                                                           with_pred=pred))
+        print(f"{label}: {products} {'minplus_pred' if pred else 'minplus'} and {leaves} "
+              f"{'fw_block_pred' if pred else 'fw_block'} launches, dist equal to the blocked "
+              f"solve's{', tree valid' if pred else ''}; {times[label]:.1f} ms (median of 3; "
+              f"blocked B=256 {blocked16_ms:.1f})")
+    del blocked16
+    times[f"blocked_fw N={n16} B=256 (phase 3c)"] = blocked16_ms
+
+    for method in ("squaring_3d", "classic"):
+        h_ = graph_of(PAPER_N[method])
+        label = f"{method} N={h_.shape[0]}"
+        got = counted(label, lambda: repro_torch.solve(h_, method=method), {})
+        check(same(got.dist, repro_torch.solve(h_).dist), f"{label}: dist differs")
+        del got
+        times[label] = median_ms(lambda: repro_torch.solve(h_, method=method))
+        print(f"{label}: no kernel launch, dist equal to the blocked solve's; "
+              f"{times[label]:.1f} ms (median of 3)")
+
+    # Under reliability (×, inexact) squaring's padded edge sets its
+    # iteration count, and an extra squaring may round a product one ulp
+    # higher: the JAX package's own batch and per-graph squaring differ so.
+    # There the per-graph check takes the reference's tolerance (rtol and
+    # atol 1e-5) and a valid tree; everywhere else it is exact.
+    rng = np.random.default_rng(7)
+    inexact = 0
+    for name in SEMIRING_NAMES:
+        mats = [in_domain(rng, n, name) for n in RAGGED]
+        for method in METHOD_NAMES:
+            kw = {"with_pred": method != "squaring_3d", "semiring": name}
+            res = repro_torch.solve_batch(mats, method=method, **kw)
+            cpu = repro_torch.solve_batch(mats, method=method, device="cpu", **kw)
+            check(same(res.dist.cpu(), cpu.dist) and
+                  (res.pred is None or torch.equal(res.pred.cpu(), cpu.pred)),
+                  f"ragged {method} {name}: card differs from the CPU")
+            for i, m in enumerate(mats):
+                one = repro_torch.solve(m, method=method, **kw)
+                u = res.unpadded(i)
+                if same(u.dist, one.dist):
+                    ok = u.pred is None or torch.equal(u.pred, one.pred)
+                else:
+                    inexact += 1
+                    ok = (name == "reliability" and method.startswith("squaring") and
+                          torch.allclose(u.dist, one.dist, rtol=1e-5, atol=1e-5) and
+                          (u.pred is None or validate_tree(m, u.dist, u.pred, name)))
+                check(ok, f"ragged {method} {name}: graph {i} differs from its own solve")
+    print(f"ragged G={len(RAGGED)} (sizes {min(RAGGED)}-{max(RAGGED)}), five methods x four "
+          f"semirings: equal to the same calls on the CPU; equal to the per-graph card "
+          f"solves but for {inexact} reliability squaring graphs, within rtol 1e-5 with "
+          f"valid trees")
+
+    # (c) The kernels on the slice's new shapes against their plain versions.
+    def hold(kind, label, cuda_fn, plain_fn, *args, **kw):
+        got, want = cuda_fn(*args, **kw), plain_fn(*args, **kw)
+        torch.cuda.synchronize()
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        check(same(got[0], want[0]) and all(torch.equal(a, b) for a, b in zip(got[1:], want[1:])),
+              f"{kind} {label}: kernel differs from the plain version")
+        errs[kind] = max(errs[kind], abs_err(got[0], want[0]))
+        print(f"{kind} {label}: equal")
+
+    for base in (64, 6):   # base 6: quadrants not 16-byte aligned (the copy path)
+        n = rk.padded_size(PAPER_N["quadrants"], base)
+        d = torch.from_numpy(in_domain(rng, n, "tropical")).cuda()
+        p = init_pred(d)
+        m = rk.split_point(n, base)
+        a_, b_, c_, dd = d[:m, :m].contiguous(), d[:m, m:], d[m:, :m], d[m:, m:]
+        hold("minplus", f"R-Kleene quadrant {n - m}x{m} x {m}x{n - m} accumulate base={base}",
+             mp.minplus_cuda, mp.minplus_torch, c_, b_, dd)
+        hold("minplus", f"R-Kleene quadrant {m}x{m} x {m}x{n - m} base={base}",
+             mp.minplus_cuda, mp.minplus_torch, a_, b_)
+        hold("minplus_pred", f"R-Kleene pred quadrant base={base} k_offset={m} j_offset=0",
+             mp.minplus_pred_cuda, mp.minplus_pred_torch, dd, c_, p[m:, m:], p[m:, :m], c_,
+             p[m:, :m], k_offset=m, j_offset=0)
+        hold("minplus_pred", f"R-Kleene pred quadrant base={base} k_offset=0 j_offset={m}",
+             mp.minplus_pred_cuda, mp.minplus_pred_torch, a_, b_, p[:m, :m], p[:m, m:], b_,
+             p[:m, m:], k_offset=0, j_offset=m)
+    hold("minplus", f"squaring N={n_sq}, x = y = a", mp.minplus_cuda, mp.minplus_torch,
+         h_sq, h_sq, h_sq)
+    p_pl = init_pred(h_pl)
+    hold("minplus_pred", f"squaring N={h_pl.shape[0]}, x = y = a, px = py = pa",
+         mp.minplus_pred_cuda, mp.minplus_pred_torch, h_pl, h_pl, p_pl, p_pl, h_pl, p_pl)
+    g_, n_ = PAPER_N["batch"]
+    b_ = min(256, n_ // 2)
+    stack = torch.from_numpy(np.stack([in_domain(rng, n_, "tropical") for _ in range(g_)])).cuda()
+    for o in (0, n_ // 2):
+        got = fr.fw_round_cuda(stack.clone(), o, block_size=b_)
+        want = fr.fw_round_torch(stack, o, block_size=b_)
+        check(same(got, want), f"fw_round G={g_} N={n_} pivot {o // b_}: differs from the plain")
+        errs["fw_round"] = max(errs["fw_round"], abs_err(got, want))
+        print(f"fw_round G={g_} N={n_} B={b_} pivot {o // b_}: equal")
+    del got, want
+    tiles = stack[:, b_:2 * b_, b_:2 * b_].contiguous()
+    ptiles = init_pred(stack)[:, b_:2 * b_, b_:2 * b_].contiguous()
+    hold("fw_block", f"T={g_} B={b_} (the batch split round's pivots)", fb.fw_block_cuda,
+         fb.fw_block_torch, tiles)
+    hold("fw_block_pred", f"T={g_} B={b_} (the batch pred rounds' pivots)",
+         fb.fw_block_pred_cuda, fb.fw_block_pred_torch, tiles, ptiles)
+    del stack, tiles, ptiles
+
+    # (d) Traces of one squaring and one R-Kleene solve.  The profiler may
+    # drop grids of a traced solve (PERF.md §7), so each trace reports the
+    # `minplus` grids it recorded beside the launches the counters saw; the
+    # busy share of a trace that dropped some is a lower bound.
+    traces = {}
+    for label, fn in ((f"squaring N={n_sq}", lambda: repro_torch.solve(h_sq, method="squaring")),
+                      (f"rkleene N={n16} base=64",
+                       lambda: repro_torch.solve(h16, method="rkleene"))):
+        rows_, busy, window = device_breakdown(f"one solve, {label}", fn)
+        traces[label] = {"busy_share": busy / window, "device_busy_ms": busy, "window_ms": window,
+                         "minplus_grids_recorded": grid_count(rows_, "minplus"),
+                         "minplus_launches": launches[label].get("minplus", 0),
+                         "minplus_ms_a_grid": grid_ms(rows_, "minplus")}
+        print(f"trace of {label}: {json.dumps(traces[label])}")
+    times["traces"] = traces
+    times["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 7 on {card}: {times['phase_s']:.1f} s; {json.dumps(times)}")
+    return launches, errs, times
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1173,7 +1499,6 @@ def main() -> int:
         "one solve, main N=16384 B=512", lambda: repro_torch.solve(h16, block_size=512))
     large["closure us a step N=16384 B=512"] = 1e3 * grid_ms(rows16, "fw_closure_grid") / 512
     large["busy share N=16384 B=512"] = busy16 / window16
-    del h16
     print(f"N=16384: B=512 dist equal to the B=256 solve's; solve ms (median of 3) and the "
           f"grid closure on {card}: {json.dumps(large)}")
 
@@ -1267,6 +1592,17 @@ def main() -> int:
         "card": card,
     }
 
+    # 7 (run here, before the kernels line). The paper's evaluation: its
+    # corpus through solve_batch, each method at full width, the kernels on
+    # the new shapes.
+    paper_launches, paper_errs, paper_times = drive_paper(card, h16,
+                                                          large["main N=16384 B=256"])
+    del h16
+    path_launches.update(paper_launches)
+    err = max(err, paper_errs.pop("fw_round"))
+    for kind, e in paper_errs.items():
+        errs[kind] = max(errs[kind], e)
+
     # 5. The plain version's time, the bound and the kernels line.
     n, b = 8192, 256
     round_ms, solves = measured["round_ms"], measured["solve_ms"]
@@ -1298,6 +1634,8 @@ def main() -> int:
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         "bound_clock_mhz": clock_mhz,
         "library_ms": None,
+        "launches_by_path": {lbl: c["fw_round"] for lbl, c in path_launches.items()
+                             if c.get("fw_round")},
         "shape": f"N={n} B={b} G=1 {str(h_dev.dtype).replace('torch.', '')}",
         "grid_ms": round_grid_ms,
         "closure": {"grid": "fw_closure", "cluster": path_clusters["main N=8192"]["fw_closure"],

@@ -48,7 +48,7 @@ from .semiring import (
     unpad,
 )
 
-__all__ = ["blocked_fw", "closure_block"]
+__all__ = ["blocked_fw", "blocked_fw_batch", "closure_block"]
 
 
 def _ops():
@@ -90,10 +90,10 @@ def _resolve_round(
 
 def _split_round(d: torch.Tensor, o: int, b: int, sr: Semiring) -> torch.Tensor:
     ops = _ops()
-    pivot = closure_block(d[o:o + b, o:o + b], sr)
-    row = ops.minplus(pivot, d[o:o + b, :], semiring=sr)         # (B, N)
-    col = ops.minplus(d[:, o:o + b], pivot, semiring=sr)         # (N, B)
-    col[o:o + b] = pivot        # col's pivot rows = the closed pivot: updates the stripes
+    pivot = closure_block(d[..., o:o + b, o:o + b], sr)             # one launch for all G
+    row = ops.minplus(pivot, d[..., o:o + b, :], semiring=sr)      # (B, N)
+    col = ops.minplus(d[..., :, o:o + b], pivot, semiring=sr)      # (N, B)
+    col[..., o:o + b, :] = pivot    # col's pivot rows = the closed pivot: updates the stripes
     return ops.minplus(col, row, d, semiring=sr)
 
 
@@ -101,15 +101,15 @@ def _split_round_pred(
     d: torch.Tensor, p: torch.Tensor, o: int, b: int, sr: Semiring
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     ops = _ops()
-    pivot, ppivot = _closure_block_pred(d[o:o + b, o:o + b], p[o:o + b, o:o + b], sr)
-    row, prow = d[o:o + b, :], p[o:o + b, :]
-    col, pcol = d[:, o:o + b], p[:, o:o + b]
+    pivot, ppivot = _closure_block_pred(d[..., o:o + b, o:o + b], p[..., o:o + b, o:o + b], sr)
+    row, prow = d[..., o:o + b, :], p[..., o:o + b, :]
+    col, pcol = d[..., :, o:o + b], p[..., :, o:o + b]
     row, prow = ops.minplus_pred(pivot, row, ppivot, prow, a=row, pa=prow, k_offset=o,
                                  j_offset=0, semiring=sr)
     col, pcol = ops.minplus_pred(col, pivot, pcol, ppivot, a=col, pa=pcol, k_offset=o,
                                  j_offset=o, semiring=sr)
-    col[o:o + b] = pivot
-    pcol[o:o + b] = ppivot
+    col[..., o:o + b, :] = pivot
+    pcol[..., o:o + b, :] = ppivot
     return ops.minplus_pred(col, row, pcol, prow, a=d, pa=p, k_offset=o, j_offset=0,
                             semiring=sr)
 
@@ -123,7 +123,8 @@ def blocked_fw(
     round_mode: Optional[str] = None,
     donate: bool = False,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Blocked Floyd-Warshall on an (n, n) cost tensor, on its device.
+    """Blocked Floyd-Warshall on an (n, n) cost tensor, or on a (G, n, n)
+    stack of independent graphs (:func:`blocked_fw_batch`), on its device.
 
     ``block_size`` is the tile edge B; the matrix is padded to a multiple
     of B with unreachable phantom nodes (semantically inert).  A bf16 ``h``
@@ -134,9 +135,9 @@ def blocked_fw(
     ops = _ops()
     sr = get_semiring(semiring)
     b, round_mode = _resolve_round(h, block_size, round_mode)
-    n = h.shape[0]
+    n = h.shape[-1]
     d = pad_to_multiple(h, b, sr)
-    nblk = d.shape[0] // b
+    nblk = d.shape[-1] // b
     if not with_pred:
         if round_mode == "split":
             for t in range(nblk):
@@ -155,3 +156,26 @@ def blocked_fw(
         else:
             d, p = _split_round_pred(d, p, t * b, b, sr)
     return unpad(d, n), unpad(p, n)
+
+
+def blocked_fw_batch(
+    hs: torch.Tensor,
+    *,
+    block_size: Optional[int] = None,
+    with_pred: bool = False,
+    semiring: SemiringLike = TROPICAL,
+    round_mode: Optional[str] = None,
+    donate: bool = False,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Blocked FW over a (G, N, N) stack of independent graphs.
+
+    The same pivot loop as :func:`blocked_fw`; every launch takes the whole
+    stack (``fw_round`` and the products carry G in their grids, the split
+    round's pivot closure is one (G, B, B) ``fw_block`` launch), so the
+    batch advances one pivot a round.  Ragged batches are padded upstream
+    (``apsp.solve_batch``); phantom nodes are inert under every registered
+    semiring.  ``donate=True`` lets the solve overwrite ``hs``."""
+    if hs.ndim != 3:
+        raise ValueError(f"blocked_fw_batch takes a (G, N, N) stack, got {tuple(hs.shape)}")
+    return blocked_fw(hs, block_size=block_size, with_pred=with_pred, semiring=semiring,
+                      round_mode=round_mode, donate=donate)

@@ -11,8 +11,10 @@ Two backends:
 * :func:`generate_np` is a copy of the JAX package's numpy generator: the
   same ``np.random.Generator`` seed gives the same graph bit for bit in both
   packages, which is how the tests and ``chip_smoke.py`` feed them one input.
-* :func:`generate` draws from a ``torch.Generator`` on any device.  Its seed
-  contract is its own: it never reproduces the JAX generator's graphs.
+* :func:`generate` draws from a ``torch.Generator`` on any device, and
+  :func:`generate_batch` builds a ragged corpus from it as one padded
+  (G, N, N) stack.  Their seed contract is their own: they never reproduce
+  the JAX generator's graphs.
 
 :func:`generate_edge_updates` is a copy of the JAX package's numpy update
 stream, so one seed gives both dynamic engines the same updates.
@@ -29,6 +31,7 @@ import torch
 __all__ = [
     "GraphSample",
     "generate",
+    "generate_batch",
     "generate_np",
     "generate_edge_updates",
     "paper_corpus",
@@ -78,6 +81,40 @@ def generate(
     h = torch.where(adj, cost, torch.full_like(cost, float("inf")))
     h.fill_diagonal_(0.0)
     return h, adj
+
+
+def generate_batch(
+    generator: torch.Generator,
+    sizes,
+    *,
+    n_max: Optional[int] = None,
+    rho: Optional[float] = None,
+    alpha: int = 100,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """torch backend, batched: a ragged corpus as one (G, N, N) stack on
+    ``generator.device``.
+
+    ``sizes`` lists each graph's true node count; graphs are drawn one
+    after another from ``generator`` at ``n_max`` (default: max(sizes)) by
+    :func:`generate` and masked down, so the stack feeds
+    ``apsp.solve_batch`` directly: entries outside a graph's (size, size)
+    block are inf off-diagonal / 0 diagonal phantom nodes.  ``rho=None``
+    samples an independent rho ~ U[0, 100] per graph (the paper's corpus
+    recipe).  Returns (H, adjacency, sizes), sizes int32.
+    """
+    dev = generator.device
+    sizes = torch.as_tensor(sizes, dtype=torch.int32).to(dev)
+    n = int(n_max) if n_max is not None else int(sizes.max())
+    drawn = [generate(generator, n, rho=rho, alpha=alpha) for _ in range(sizes.shape[0])]
+    h = torch.stack([d[0] for d in drawn])
+    adj = torch.stack([d[1] for d in drawn])
+    node = torch.arange(n, device=dev)
+    live = node[None, :, None] < sizes[:, None, None]
+    valid = live & (node[None, None, :] < sizes[:, None, None])
+    eye = torch.eye(n, dtype=torch.bool, device=dev)[None]
+    phantom = torch.where(eye, 0.0, float("inf")).to(h.dtype)
+    h = torch.where(valid & ~eye, h, phantom)
+    return h, adj & valid, sizes
 
 
 def generate_np(

@@ -13,7 +13,7 @@ Reconstruction walks backwards from j.  Two implementations:
   name.
 
 :func:`path_cost` and :func:`validate_tree` check a solve on the host.
-``spd_features`` comes with the GNN slice (ROADMAP.md queue 1, item 12).
+``spd_features`` comes with the GNN slice (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """The port's CUDA kernels (fw_round, minplus, minplus_argmin,
 minplus_pred, fw_block, fw_block_pred, row_close) against their plain
-PyTorch versions, and the dynamic engine on the card against the same
-engine on the CPU.  Marked ``cuda``: every test skips, with its reason, on a host without
+PyTorch versions, and the dynamic engine, the five solve methods and
+``solve_batch`` on the card against the same calls on the CPU.  Marked ``cuda``: every test skips, with its reason, on a host without
 a CUDA device.  Run them on the GPU host with
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 
@@ -18,6 +18,7 @@ import torch
 
 from oracle import generate
 
+import repro_torch
 from repro_torch.core import DynamicAPSP, Semiring, generate_edge_updates, generate_np, init_pred, solve
 from repro_torch.core.semiring import TROPICAL, get_semiring
 from repro_torch.kernels import ops
@@ -626,3 +627,164 @@ def test_large_tile_solve_at_8192_equals_b256(cuda, b):
     got = solve(h, block_size=b).dist
     assert fr.rounds - before == 8192 // b
     assert torch.equal(got, want)
+
+
+# The paper's solvers and the batch engine on the card, against the same
+# calls on the CPU (the plain versions).
+
+METHOD_KW = {"squaring": {}, "squaring_3d": {}, "classic": {}, "blocked_fw": {"block_size": 16},
+             "rkleene": {"base": 8}}
+
+
+def _counts():
+    return {"fw_round": fr.rounds, **mp.launches, **fb.launches}
+
+
+def _launched_since(before):
+    return {k: v - before[k] for k, v in _counts().items() if v != before[k]}
+
+
+@pytest.mark.parametrize("with_pred", [False, True])
+@pytest.mark.parametrize("semiring", SEMIRINGS)
+@pytest.mark.parametrize("method", sorted(METHOD_KW))
+def test_methods_on_card_match_cpu(cuda, method, semiring, with_pred):
+    h = generate(np.random.default_rng(77), 77, semiring)
+    got = solve(h, method=method, with_pred=with_pred, semiring=semiring, **METHOD_KW[method])
+    want = solve(h, method=method, with_pred=with_pred, semiring=semiring, device="cpu",
+                 **METHOD_KW[method])
+    assert got.dist.is_cuda and _same(got.dist.cpu(), want.dist)
+    assert got.pred is None or torch.equal(got.pred.cpu(), want.pred)
+
+
+@pytest.mark.parametrize("with_pred", [False, True])
+@pytest.mark.parametrize("base", [6, 8, 64])
+def test_rkleene_on_card_launches_its_kernels(cuda, base, with_pred):
+    """Quadrant products on the kernel (base 6: quadrants not 16-byte
+    aligned, the copy path), every leaf on fw_block; the counts follow the
+    recursion: 6 products and 2 halves a level."""
+    rk = importlib.import_module("repro_torch.core.rkleene")
+
+    n = 300
+    h = generate_np(np.random.default_rng(base), n, rho=5.0).h
+
+    def count(m):
+        if m <= base:
+            return 0, 1
+        half = m // 2 if with_pred else rk.split_point(m, base)
+        p1, l1 = count(half)
+        p2, l2 = count(m - half)
+        return 6 + p1 + p2, l1 + l2
+
+    edge = rk.pow2_size(n, base) if with_pred else rk.padded_size(n, base)
+    products, leaves = count(edge)
+    before = _counts()
+    got = solve(h, method="rkleene", base=base, with_pred=with_pred)
+    torch.cuda.synchronize()
+    prod, leaf = ("minplus_pred", "fw_block_pred") if with_pred else ("minplus", "fw_block")
+    assert _launched_since(before) == {prod: products, leaf: leaves}
+    want = solve(h, method="rkleene", base=base, with_pred=with_pred, device="cpu")
+    assert torch.equal(got.dist.cpu(), want.dist)
+    assert torch.equal(got.dist.cpu(), solve(h, device="cpu").dist)
+    assert got.pred is None or torch.equal(got.pred.cpu(), want.pred)
+
+
+@pytest.mark.parametrize("with_pred", [False, True])
+def test_squaring_on_card_launches_log2_products(cuda, with_pred):
+    """ceil(log2 n) products with x, y and the accumulator the same tensor."""
+    h = generate_np(np.random.default_rng(3), 1000, rho=1.0).h
+    before = _counts()
+    got = solve(h, method="squaring", with_pred=with_pred)
+    torch.cuda.synchronize()
+    assert _launched_since(before) == {"minplus_pred" if with_pred else "minplus": 10}
+    want = solve(h, method="squaring", with_pred=with_pred, device="cpu")
+    assert torch.equal(got.dist.cpu(), want.dist)
+    assert got.pred is None or torch.equal(got.pred.cpu(), want.pred)
+
+
+def test_squaring_3d_and_classic_launch_no_kernel(cuda):
+    h = generate_np(np.random.default_rng(4), 96, rho=5.0).h
+    want = solve(h).dist
+    for method in ("squaring_3d", "classic"):
+        before = _counts()
+        got = solve(h, method=method).dist
+        torch.cuda.synchronize()
+        assert _launched_since(before) == {} and torch.equal(got, want), method
+
+
+@pytest.mark.parametrize("bucket", [False, True])
+@pytest.mark.parametrize("method", sorted(METHOD_KW))
+def test_solve_batch_on_card_matches_cpu(cuda, method, bucket):
+    rng = np.random.default_rng(9)
+    hs = [generate_np(rng, n).h for n in (4, 17, 33, 64, 7, 50, 130, 1)]
+    with_pred = method != "squaring_3d"
+    got = repro_torch.solve_batch(hs, method=method, with_pred=with_pred, bucket_by_size=bucket,
+                                  **METHOD_KW[method])
+    want = repro_torch.solve_batch(hs, method=method, with_pred=with_pred,
+                                   bucket_by_size=bucket, device="cpu", **METHOD_KW[method])
+    assert got.dist.is_cuda and torch.equal(got.dist.cpu(), want.dist)
+    assert not with_pred or torch.equal(got.pred.cpu(), want.pred)
+    for i, h in enumerate(hs):
+        assert torch.equal(got.unpadded(i).dist, solve(h).dist), i
+
+
+@pytest.mark.parametrize("options", [{}, {"with_pred": True}, {"round_mode": "split"},
+                                     {"round_mode": "split", "with_pred": True}])
+def test_blocked_fw_batch_on_card_counts_one_launch_a_step(cuda, options):
+    """G = 64 graphs advance one pivot a round: the launch counts are those
+    of one graph's solve."""
+    rng = np.random.default_rng(10)
+    hs = np.stack([generate_np(rng, 300, rho=3.0).h for _ in range(64)])
+    before = _counts()
+    got = repro_torch.solve_batch(hs, block_size=128, **options)
+    torch.cuda.synchronize()
+    rounds = 3
+    pred, split = options.get("with_pred", False), "round_mode" in options
+    expect = ({"fw_block_pred": rounds, "minplus_pred": (3 if split else 2) * rounds} if pred
+              else {"fw_block": rounds, "minplus": 3 * rounds} if split else {"fw_round": rounds})
+    assert _launched_since(before) == expect
+    for i in (0, 31, 63):
+        one = solve(hs[i], block_size=128, **options)
+        assert torch.equal(got.dist[i], one.dist)
+        assert got.pred is None or torch.equal(got.pred[i], one.pred)
+
+
+def test_core_products_on_card(cuda):
+    from repro_torch.core import minplus, minplus_3d, minplus_3d_argmin, minplus_pred, softmin_matmul
+
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(generate_np(rng, 200).h)
+    for fn in (minplus, minplus_3d):
+        assert torch.equal(fn(x.to(cuda), x.to(cuda)).cpu(), fn(x, x))
+    z, k = minplus_3d_argmin(x[:64, :64].to(cuda), x[:64, :64].to(cuda))
+    wz, wk = minplus_3d_argmin(x[:64, :64], x[:64, :64])
+    assert torch.equal(z.cpu(), wz) and torch.equal(k.cpu(), wk)
+    p = init_pred(x)
+    before = _counts()
+    gz, gp = minplus_pred(x.to(cuda), x.to(cuda), p.to(cuda), p.to(cuda), k_offset=3, j_offset=3)
+    assert _launched_since(before) == {"minplus_pred": 1}
+    wz, wp = minplus_pred(x, x, p, p, k_offset=3, j_offset=3)
+    assert torch.equal(gz.cpu(), wz) and torch.equal(gp.cpu(), wp)
+    s, w = softmin_matmul(x.to(cuda), x.to(cuda), tau=0.1).cpu(), softmin_matmul(x, x, tau=0.1)
+    fin = torch.isfinite(w)
+    assert torch.equal(fin, torch.isfinite(s))
+    assert float((s[fin] - w[fin]).abs().max()) <= 1e-5 * 100
+
+
+def test_early_exit_on_card(cuda):
+    from repro_torch.core import fw_squaring_early_exit
+
+    h = torch.from_numpy(generate_np(np.random.default_rng(13), 500, rho=2.0).h)
+    gd, git = fw_squaring_early_exit(h.to(cuda))
+    wd, wit = fw_squaring_early_exit(h)
+    assert git == wit and torch.equal(gd.cpu(), wd)
+
+
+def test_generate_batch_on_card(cuda):
+    from repro_torch.core import generate_batch
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    h, adj, sizes = generate_batch(gen, [30, 100, 64])
+    assert h.is_cuda and h.shape == (3, 100, 100) and sizes.is_cuda
+    res = repro_torch.solve_batch(h, sizes.cpu().numpy(), method="squaring")
+    for i, n in enumerate((30, 100, 64)):
+        assert torch.equal(res.unpadded(i).dist, solve(h[i, :n, :n]).dist)

@@ -39,6 +39,10 @@ def test_port_files_exist():
     "repro_torch.kernels.fw_block",
     "repro_torch.kernels.row_close",
     "repro_torch.core.dynamic",
+    "repro_torch.core.rkleene",
+    "repro_torch.core.apsp",
+    "repro_torch.core.semiring",
+    "repro_torch.core.graphgen",
 ])
 def test_new_modules_are_scanned_and_import(module):
     path = ROOT / "src" / (module.replace(".", "/") + ".py")
@@ -122,3 +126,28 @@ def test_port_dynamic_engine_without_jax():
     )
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
+
+
+@pytest.mark.parametrize("method", ["squaring", "squaring_3d", "classic", "rkleene"])
+def test_port_solve_batch_without_jax(method):
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import numpy as np, torch\n"
+        "import repro_torch\n"
+        "hs = [g.h for g in repro_torch.paper_corpus(seed=0, n_graphs=4, v_max=24)]\n"
+        f"res = repro_torch.solve_batch(hs, method={method!r}, with_pred=True, base=8,\n"
+        "                               bucket_by_size=True, device='cpu')\n"
+        "for i, h in enumerate(hs):\n"
+        "    u = res.unpadded(i)\n"
+        "    assert torch.equal(u.dist, repro_torch.solve(h, device='cpu').dist)\n"
+        "    assert repro_torch.validate_tree(h, u.dist, u.pred)\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", code], env=env, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr

@@ -110,15 +110,20 @@ def test_solve_without_a_device_needs_cuda(monkeypatch):
 
 @pytest.mark.parametrize("method", ["squaring", "squaring_3d", "classic", "rkleene"])
 def test_unported_options_raise(method):
-    """The JAX package's other methods are not ported yet: solve names the
-    queue that holds them.  (``with_pred`` and ``round_mode="split"`` are
-    ported: tests/test_torch_pred.py, tests/test_torch_split.py.)"""
-    with pytest.raises(ValueError, match="ROADMAP"):
-        solve(_graph(16, "tropical"), device="cpu", method=method)
+    """The JAX package's other methods, once unported, are ported now
+    (tests/test_torch_methods.py holds them against JAX): each solves to the
+    blocked solve's distances, and a name that is not registered still
+    raises, naming the registered methods."""
+    h = _graph(16, "tropical")
+    got = solve(h, device="cpu", method=method)
+    assert got.method == method
+    assert torch.equal(got.dist, solve(h, device="cpu").dist)
+    with pytest.raises(ValueError, match=method):
+        solve(h, device="cpu", method=method + "_unknown")
 
 
 def test_unknown_method_and_round_mode_raise():
     with pytest.raises(ValueError, match="unknown APSP method"):
-        solve(_graph(8, "tropical"), method="rkleene", device="cpu")
+        solve(_graph(8, "tropical"), method="nope", device="cpu")
     with pytest.raises(ValueError, match="round_mode"):
         solve(_graph(8, "tropical"), round_mode="fast", device="cpu")
