@@ -54,6 +54,24 @@ on the slice's shapes (R-Kleene quadrant views with offsets, squaring with
 aliased operands, a G = 64 round) against their plain versions, and traces
 of one squaring and one R-Kleene solve.
 
+Phase 8 drives the serving tier (``repro_torch.launch``), with the port's
+autotune cache pointed at a fresh file before phase 1: ``tune_fw_round``
+at n_max = 1024 writes a ``cuda`` entry (the tuned solve equal to the
+default one), then ``serve_apsp`` serves 64 ragged graphs of up to 1024
+nodes, 16 a cycle, by squaring, blocked FW with and without predecessors
+and R-Kleene (graphs/s each); ``serve_apsp_dynamic`` serves 64 requests
+on four N = 8192 slots without chaos, plain and with predecessors (no
+retry, quarantine, poisoned answer or drift; every batched drain of the
+pool defers nothing for a failure, reports its whole group and launches
+one product a pass; ms per submit+drain and per query), and the chaos
+drills at N = 2048, sync (NaN, crash, poison, a 50 ms deadline) and
+async + durable (backend loss, cache storm, crash-restore); then
+``apply_updates_batched`` on four N = 8192 engines equals four twins
+updated one by one, one launch a pass, timed against them beside its byte
+bound, with the commit's host work (snapshot, health probe); and engine
+checkpoints at N = 8192 with predecessors, f32 and bf16, restored and
+replayed bit-exact, with their save and load ms and size on disk.
+
 It traces a solve of each path with ``torch.profiler`` (the pred traces
 must hold no gather row: the pred rule runs in ``minplus_pred``'s
 epilogue), holds every kernel against its plain version once more at the
@@ -85,11 +103,13 @@ import ctypes
 import importlib
 import json
 import math
+import os
 import re
 import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1055,6 +1075,347 @@ def drive_paper(card: str, h16: torch.Tensor, blocked16_ms: float):
     return launches, errs, times
 
 
+# Phase 8's request counts: the smoke's time limit cuts these, never n.
+SERVE_REQUESTS = {"8a": 64, "8b": 40, "8c": 64}
+SERVE_METHODS = (("squaring", "squaring", False), ("blocked_fw", "blocked_fw", False),
+                 ("blocked_fw --with-pred", "blocked_fw", True), ("rkleene", "rkleene", False))
+
+
+def dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def drive_serving(card: str, scratch: Path, lane_rate: float):
+    """Phase 8: the serving tier on the card.  (a) ``serve_apsp`` at the
+    paper's n_max = 1024 for squaring, blocked FW with and without preds
+    and R-Kleene, after ``tune_fw_round(1024)`` has written a ``cuda``
+    entry (the tuned solve equal to the default one).  (b)
+    ``serve_apsp_dynamic`` on four N = 8192 slots without chaos, plain and
+    with preds: no retry, quarantine, poisoned answer or drift, every
+    batched drain of the pool held to its contract (no group deferred for a
+    failure, ``batched == G``, one launch a pass).  (c) The chaos drills at
+    N = 2048, sync and async + durable.  (d) ``apply_updates_batched`` on
+    four N = 8192 engines against twins updated one by one, one launch a
+    pass, timed against the sequential drains beside its byte bound.  (e)
+    Engine checkpoints at N = 8192 with preds, f32 and bf16, restored and
+    replayed bit-exact.  Returns (launches by path, largest |error| by
+    kernel, times, entries for the kernels line)."""
+    import repro_torch
+    from repro_torch.checkpoint import load_engine_checkpoint, save_engine_checkpoint
+    from repro_torch.core import (DynamicAPSP, UpdateJournal, apply_updates_batched,
+                                  generate_edge_updates, generate_np)
+    from repro_torch.kernels import autotune, ops
+    from repro_torch.launch import serve
+    dyn = importlib.import_module("repro_torch.core.dynamic")
+    pool_mod = importlib.import_module("repro_torch.launch.pool")
+    fb, fr, mp, rc = (kernel_module("fw_block"), kernel_module("fw_round"),
+                      kernel_module("minplus"), kernel_module("row_close"))
+
+    t_phase = time.perf_counter()
+    launches, times, extra = {}, {}, {}
+    errs = {"minplus": 0.0, "minplus_argmin": 0.0}
+
+    def reset():
+        fr.rounds = 0
+        for counts_ in (mp.launches, fb.launches, rc.launches):
+            counts_.update(dict.fromkeys(counts_, 0))
+
+    def read():
+        torch.cuda.synchronize()
+        return {k: v for k, v in {"fw_round": fr.rounds, **mp.launches, **fb.launches,
+                                  **rc.launches}.items() if v}
+
+    # (a) serve_apsp at n_max = 1024, the round shape tuned first.
+    n_max = 1024
+    t0 = time.perf_counter()
+    tuned = autotune.tune_fw_round(n_max, device="cuda")
+    key = autotune.key_for_fw_round("cuda", torch.float32, n_max)
+    check(tuned["source"] == "measured" and key in autotune.load_entries(),
+          f"tune_fw_round({n_max}) wrote no {key} entry: {tuned}")
+    b_t, rm_t = tuned["params"]["block_size"], tuned["params"]["round_mode"]
+    h = generate_np(np.random.default_rng(8), n_max).h
+    default = repro_torch.solve(h, block_size=256, round_mode="fused").dist
+    check(torch.equal(repro_torch.solve(h, block_size=b_t, round_mode=rm_t).dist, default),
+          f"the solve at the tuned (B={b_t}, {rm_t}) differs from the default solve")
+    check(autotune.lookup_fw_round("cuda", torch.float32, n_max) == tuned["params"]
+          and torch.equal(repro_torch.solve(h).dist, default),
+          "the solve with no block size does not read the tuned entry")
+    times["tune_fw_round n=1024 s"] = time.perf_counter() - t0
+    print(f"phase 8a: tune_fw_round({n_max}) on {card}: {json.dumps(tuned)}; the tuned "
+          f"solve equals the default (B=256, fused) bit for bit")
+    expect = {"squaring": {"minplus"}, "rkleene": {"minplus", "fw_block"},
+              "blocked_fw --with-pred": {"minplus_pred", "fw_block_pred"},
+              "blocked_fw": {"fw_round"} if rm_t == "fused" else {"fw_block", "minplus"}}
+    for label, method, pred in SERVE_METHODS:
+        got = {}
+        reset()
+        rc_ = serve.serve_apsp(SERVE_REQUESTS["8a"], batch=16, n_max=n_max, method=method,
+                               with_pred=pred, summary_out=got)
+        lbl = f"serve_apsp {label} n_max={n_max}"
+        launches[lbl] = read()
+        check(rc_ == 0, f"{lbl} returned {rc_}")
+        check(set(launches[lbl]) == expect[label],
+              f"{lbl} launched {launches[lbl]}, expected the kernels {expect[label]}")
+        times[lbl] = got
+        print(f"phase 8a {lbl} on {card}: {got['graphs_per_s']:.1f} graphs/s end to end, "
+              f"{got['steady_graphs_per_s']:.1f} steady, first cycle {got['first_cycle_s']:.2f} s; "
+              f"launches {launches[lbl]}")
+
+    # (b) serve_apsp_dynamic on four N = 8192 slots, no chaos.  Every batched
+    # drain of the pool is held to its contract: nothing deferred but what
+    # the classifier defers (a failed group would be), each rank-k member
+    # reports its whole group, and the pass count is the launch count.
+    drains = []
+    real_batched = pool_mod.apply_updates_batched
+
+    def held(engines, batches):
+        check(all(e.dist.is_cuda for e in engines), "a CPU tensor on the card's batched drain")
+        kinds = [dyn.DynamicAPSP._classify_batch(e, b_) for e, b_ in zip(engines, batches)]
+        kb = {i: dyn._bucket_k(int(p_[0].size)) for i, (k_, p_) in enumerate(kinds)
+              if k_ == "rank_k"}
+        fam = "minplus" if engines[0].pred is None else "minplus_argmin"
+        before = mp.launches[fam]
+        infos, deferred = real_batched(engines, batches)
+        torch.cuda.synchronize()
+        check(set(deferred) == {i for i, (k_, _) in enumerate(kinds) if k_ == "defer"},
+              f"the batched drain deferred {deferred} beyond the classifier's: a group failed")
+        passes = {}
+        for i, b_ in kb.items():
+            g_ = sum(1 for c_ in kb.values() if c_ == b_)
+            check(infos[i]["batched"] == g_, f"batched drain info {infos[i]}, group of {g_}")
+            passes[b_] = infos[i]["passes"]
+        check(mp.launches[fam] - before == sum(passes.values()),
+              f"the batched drain launched {mp.launches[fam] - before} {fam}, "
+              f"passes {passes}")
+        drains.append({"engines": len(engines), "groups": passes, "deferred": deferred})
+        return infos, deferred
+
+    pool_mod.apply_updates_batched = held
+    try:
+        for pred in (False, True):
+            lbl = f"serve_apsp_dynamic N=8192 {'with_pred' if pred else 'plain'}"
+            out = {}
+            drains.clear()
+            reset()
+            rc_ = serve.serve_apsp_dynamic(SERVE_REQUESTS["8b"], n_max=8192, graphs=4,
+                                           mutate_rate=0.5, mutate_k=8, verify_every=16,
+                                           seed=0, with_pred=pred, backlog_watermark=3,
+                                           summary_out=out)
+            launches[lbl] = read()
+            s_ = out["summary"]
+            check(rc_ == 0, f"{lbl} returned {rc_}")
+            bad = {k_: v for k_, v in (("retries", s_["slots"]["retries"]),
+                                      ("quarantines", s_["slots"]["quarantines"]),
+                                      ("updates_failed", s_["pool"]["updates_failed"]),
+                                      ("poisoned_served", s_["pool"]["poisoned_served"]),
+                                      ("verify_drift", s_["pool"]["verify_drift"])) if v}
+            check(not bad and out["verify_drift"] == 0, f"{lbl}: {bad}")
+            check(drains, f"{lbl}: the pool ran no batched drain")
+            stats = out["engine_stats"]
+            row_iters = sum(st["row_iters"] for st in stats.values())
+            mode = "row_close_pred" if pred else "row_close"
+            check(launches[lbl].get(mode, 0) == row_iters
+                  and not launches[lbl].get("row_close_argmin"),
+                  f"{lbl}: {launches[lbl]} against {row_iters} row passes")
+            fam = "minplus_argmin" if pred else "minplus"
+            if sum(st["rank_k"] for st in stats.values()):
+                check(launches[lbl].get(fam, 0) > 0, f"{lbl}: rank-k updates but no {fam}")
+            times[lbl] = {k_: out[k_] for k_ in ("ms_per_submit_drain", "ms_per_query",
+                                                  "seconds", "warm_s", "n_updates",
+                                                  "n_queries")}
+            times[lbl].update(batched_drains=len(drains), drain_batched=s_["pool"]["drain_batched"],
+                              verify_ok=s_["pool"]["verify_ok"],
+                              paths={k_: sum(st[k_] for st in stats.values())
+                                     for k_ in ("rank_k", "row_resolve", "warm_resolve",
+                                                "full_resolve", "noop")})
+            print(f"phase 8b {lbl} on {card}: {json.dumps(times[lbl])}; launches "
+                  f"{launches[lbl]}; batched drains {json.dumps(drains)}")
+    finally:
+        pool_mod.apply_updates_batched = real_batched
+
+    # (c) The chaos drills at N = 2048: zero poisoned answers, every slot
+    # back to healthy (serve's own exit code), faults that fired.
+    for lbl, kw in (
+        ("sync nan/crash/poison, deadline 50 ms",
+         dict(fault_spec="nan:0.1,crash:0.08:3,poison:0.05", deadline_ms=50.0)),
+        ("async durable, backend_loss/cache_storm/crash_restore",
+         dict(fault_spec="backend_loss:0.3:6,cache_storm:0.2:8,crash_restore:0.25",
+              async_updates=True, durability_dir=str(scratch / "durable"),
+              checkpoint_every=4)),
+    ):
+        out = {}
+        reset()
+        rc_ = serve.serve_apsp_dynamic(SERVE_REQUESTS["8c"], n_max=2048, graphs=4,
+                                       mutate_rate=0.5, mutate_k=8, verify_every=16, seed=0,
+                                       summary_out=out, **kw)
+        lbl = f"serve_apsp_dynamic N=2048 chaos {lbl}"
+        launches[lbl] = read()
+        s_ = out["summary"]
+        fired = sum(s_["faults_injected"].values())
+        check(rc_ == 0 and s_["pool"]["poisoned_served"] == 0 and fired > 0,
+              f"{lbl}: rc {rc_}, poisoned {s_['pool']['poisoned_served']}, faults {fired}")
+        check(s_.get("executor", {}).get("drain_errors", 0) == 0, f"{lbl}: executor errors")
+        times[lbl] = {"ms_per_submit_drain": out["ms_per_submit_drain"],
+                      "ms_per_query": out["ms_per_query"], "seconds": out["seconds"],
+                      "faults": s_["faults_injected"], "recoveries": s_["recoveries"],
+                      "crash_restores": s_["pool"]["crash_restores"],
+                      "deadline_misses": s_["pool"]["deadline_misses"]}
+        print(f"phase 8c {lbl} on {card}: {json.dumps(times[lbl])}")
+    shutil.rmtree(scratch / "durable", ignore_errors=True)
+
+    # (d) The batched drain: four N = 8192 engines, a decrease batch of k = 16
+    # each, against twins updated one by one.
+    n, g = 8192, 4
+    hs = [generate_np(np.random.default_rng(80 + i), n).h for i in range(g)]
+    # inserted or lowered edges of cost 1: decreases that move the state
+    # (the generator's own weights seldom beat a solved distance here)
+    batches = [generate_edge_updates(np.random.default_rng(90 + i), hs[i], 16)[:2]
+               + (np.ones(16, np.float32),) for i in range(g)]
+    base = {pred: [DynamicAPSP(h_, with_pred=pred) for h_ in hs] for pred in (False, True)}
+
+    def fresh(pred):
+        return [DynamicAPSP(e.h, with_pred=pred, state={
+            "dist": e.dist.clone(), "pred": None if e.pred is None else e.pred.clone(),
+            "version": e.version}) for e in base[pred]]
+
+    # the kernels at the pass's shape, against their plain versions
+    kb = dyn._bucket_k(16)
+    d_st = torch.stack([e.dist for e in base[True]])
+    u_ = torch.from_numpy(np.stack([np.resize(b_[0], kb) for b_ in batches])).long().cuda()
+    v_ = torch.from_numpy(np.stack([np.resize(b_[1], kb) for b_ in batches])).long().cuda()
+    w_ = torch.from_numpy(np.stack([np.resize(b_[2], kb) for b_ in batches])).cuda()
+    x_ = torch.gather(d_st, 2, u_[:, None, :].expand(g, n, kb)) + w_[:, None, :]
+    y_ = torch.gather(d_st, 1, v_[:, :, None].expand(g, kb, n))
+    for kind, (cuda_fn, plain_fn) in (("minplus", (mp.minplus_cuda, mp.minplus_torch)),
+                                      ("minplus_argmin", (mp.minplus_argmin_cuda,
+                                                          mp.minplus_argmin_torch))):
+        got, want = cuda_fn(x_, y_, d_st), plain_fn(x_, y_, d_st)
+        torch.cuda.synchronize()
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        check(same(got[0], want[0]) and all(torch.equal(a_, b_) for a_, b_ in
+                                            zip(got[1:], want[1:])),
+              f"{kind} at the batched rank-k shape G={g} N={n} K={kb} differs from plain")
+        errs[kind] = max(errs[kind], abs_err(got[0], want[0]))
+        print(f"{kind} at the batched rank-k shape G={g} N={n} K={kb}: equal to the plain "
+              f"version")
+    del x_, y_, d_st
+
+    for pred in (True, False):
+        fam = "minplus_argmin" if pred else "minplus"
+        engines, twins = fresh(pred), fresh(pred)
+        reset()
+        infos, deferred = apply_updates_batched(engines, batches)
+        got = read()
+        passes = infos[0]["passes"]
+        check(deferred == [] and all(i_["batched"] == g and i_["passes"] == passes
+                                     for i_ in infos),
+              f"batched drain infos {infos}, deferred {deferred}")
+        check(got == {fam: passes}, f"batched drain launched {got}, {passes} passes")
+        own = []
+        for e, t_, b_ in zip(engines, twins, batches):
+            ti = t_.update(*b_)
+            own.append(ti["passes"])
+            check(torch.equal(e.dist, t_.dist) and e.version == t_.version
+                  and (not pred or torch.equal(e.pred, t_.pred)),
+                  "a batched engine differs from its twin updated with update")
+            check({k_: v for k_, v in e.stats.items() if k_ != "rank_k_passes"}
+                  == {k_: v for k_, v in t_.stats.items() if k_ != "rank_k_passes"}
+                  and e.stats["rank_k_passes"] == passes >= t_.stats["rank_k_passes"],
+                  f"batched stats {e.stats} against the twin's {t_.stats}")
+        del engines, twins
+        lbl = f"batched drain G={g} N={n} k=16 {'with_pred' if pred else 'plain'}"
+
+        def batched_run():
+            set_ = fresh(pred)
+            torch.cuda.synchronize()
+            ms_ = cuda_ms(lambda: apply_updates_batched(set_, batches))
+            return ms_
+
+        def sequential_run():
+            set_ = fresh(pred)
+            torch.cuda.synchronize()
+            return cuda_ms(lambda: [e.update(*b_) for e, b_ in zip(set_, batches)])
+
+        bat = statistics.median(batched_run() for _ in range(3))
+        seq = statistics.median(sequential_run() for _ in range(3))
+        d_st = torch.stack([e.dist for e in base[pred]])
+        p_st = torch.stack([e.pred for e in base[pred]]) if pred else None
+        pass_ms = median_ms(lambda: ops.rank_k_update(d_st, u_, v_, w_, pred=p_st), reps=10)
+        one_ms = median_ms(lambda: ops.rank_k_update(d_st[0], u_[0], v_[0], w_[0],
+                                                      pred=None if p_st is None else p_st[0]),
+                           reps=10)
+        del d_st, p_st
+        # a pass reads the state and writes the new one (preds too)
+        pass_bytes = g * n * n * 4 * 2 * (2 if pred else 1)
+        bound = pass_bytes / HBM_BYTES_PER_S * 1e3
+        ops_bound = g * n * n * kb * (4 if pred else 2) / lane_rate * 1e3
+        times[lbl] = {"batched_ms": bat, "sequential_ms": seq, "passes": passes,
+                      "twin_passes": own, "pass_ms": pass_ms, "one_graph_pass_ms": one_ms,
+                      "pass_bound_ms": max(bound, ops_bound),
+                      "pass_bound_by": "bytes" if bound >= ops_bound else "operations",
+                      "drain_bound_ms": passes * max(bound, ops_bound)}
+        extra.setdefault(fam, {})[f"batched rank-k pass G={g} N={n} K={kb}"] = {
+            "ms": pass_ms, "bound_ms": max(bound, ops_bound),
+            "bound_by": times[lbl]["pass_bound_by"], "one_graph_ms": one_ms}
+        print(f"phase 8d {lbl} on {card}: equal to the twins; {json.dumps(times[lbl])}")
+
+    # The commit's host work at N = 8192 (the snapshot and the health probe
+    # the pool runs after every committed drain).
+    e0 = base[True][0]
+    rng_p = np.random.default_rng(0)
+    for name_, fn_ in (("snapshot", e0.snapshot),
+                       ("health_probe", lambda: e0.health_probe(64, rng_p))):
+        ts = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn_()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        times[f"commit host {name_} ms N={n} with_pred"] = statistics.median(ts)
+    print(f"phase 8d commit host time at N={n} with preds on {card}: snapshot "
+          f"{times[f'commit host snapshot ms N={n} with_pred']:.1f} ms, health probe "
+          f"{times[f'commit host health_probe ms N={n} with_pred']:.1f} ms")
+    del base
+
+    # (e) Engine checkpoints at N = 8192 with preds: save, go on updating
+    # with a journal, load, restore, replay: bit-equal to the engine that
+    # never stopped.
+    for dtype in (torch.float32, torch.bfloat16):
+        name_ = str(dtype).replace("torch.", "")
+        ck_dir = scratch / f"ck-{name_}"
+        eng = DynamicAPSP(hs[0], with_pred=True, dtype=dtype)
+        eng.journal = UpdateJournal(str(scratch / f"ck-{name_}.wal"))
+        t0 = time.perf_counter()
+        path = save_engine_checkpoint(str(ck_dir), eng)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        rng_u = np.random.default_rng(3)
+        for wf in (0.0, 0.25, 0.0):
+            eng.update(*generate_edge_updates(rng_u, eng.h, 8, worsen_frac=wf))
+        t0 = time.perf_counter()
+        st = load_engine_checkpoint(str(ck_dir))
+        load_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        restored = DynamicAPSP(st["h"], with_pred=True, dtype=dtype, state=st)
+        torch.cuda.synchronize()
+        install_ms = (time.perf_counter() - t0) * 1e3
+        replayed = eng.journal.replay_onto(restored, min_version=st["version"])
+        check(replayed >= 3 and restored.version == eng.version
+              and torch.equal(restored.dist, eng.dist) and torch.equal(restored.pred, eng.pred)
+              and np.array_equal(restored.h, eng.h) and restored.dist.dtype == dtype,
+              f"the {name_} checkpoint + journal replay differs from the engine that ran on")
+        eng.journal.close()
+        lbl = f"engine checkpoint N={n} with_pred {name_}"
+        times[lbl] = {"save_ms": save_ms, "load_ms": load_ms, "install_ms": install_ms,
+                      "bytes_on_disk": dir_bytes(path), "replayed": replayed}
+        print(f"phase 8e {lbl} on {card}: restored + {replayed} journal records equal the "
+              f"engine that ran on, bit for bit; {json.dumps(times[lbl])}")
+        del eng, restored
+        shutil.rmtree(ck_dir, ignore_errors=True)
+
+    times["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 8 on {card}: {times['phase_s']:.1f} s; {json.dumps(times)}")
+    return launches, errs, times, extra
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1062,6 +1423,18 @@ def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print(f"chip_smoke: no src/repro_torch beside {__file__}", file=sys.stderr)
         return 2
+    # The port's autotune cache in a fresh file: one left on the host would
+    # change the block size the earlier phases solve at.  Phase 8 tunes into
+    # it; the directory also holds phase 8's checkpoints.
+    scratch = Path(tempfile.mkdtemp(prefix="chip-smoke-"))
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = str(scratch / "autotune.json")
+    try:
+        return run(scratch)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+
+
+def run(scratch: Path) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import scipy.sparse
     from scipy.sparse.csgraph import dijkstra
@@ -1603,6 +1976,18 @@ def main() -> int:
     for kind, e in paper_errs.items():
         errs[kind] = max(errs[kind], e)
 
+    # 8 (run here, before the kernels line). The serving tier: serve_apsp,
+    # the pool on N = 8192 slots with and without chaos, the batched drain,
+    # engine checkpoints.
+    serving_launches, serving_errs, serving_times, serving_extra = drive_serving(
+        card, scratch, lane_rate)
+    path_launches.update(serving_launches)
+    for kind, e in serving_errs.items():
+        errs[kind] = max(errs[kind], e)
+    row_close_entry["launches_by_path"] = {
+        lbl: {m: c[m] for m in ROW_CLOSE_MODES if c.get(m)}
+        for lbl, c in path_launches.items() if any(c.get(m) for m in ROW_CLOSE_MODES)}
+
     # 5. The plain version's time, the bound and the kernels line.
     n, b = 8192, 256
     round_ms, solves = measured["round_ms"], measured["solve_ms"]
@@ -1770,6 +2155,9 @@ def main() -> int:
                 for name, (ms, count) in traces[path_of[kind]][0].items()
                 if any(f"repro_torch::{g_}<" in name for g_ in grids_)
                 or "repro_torch::kmajor(" in name}
+        for lbl, v in serving_extra.get(kind, {}).items():
+            entry["other_shapes_ms"][lbl] = v["ms"]
+            entry[f"bound_ms {lbl}"] = v["bound_ms"]
         if kind == "minplus_argmin":
             for lbl, (*a_, ko, jo) in pred_shapes.items():
                 entry["other_shapes_ms"][lbl] = median_ms(

@@ -18,7 +18,7 @@ from .apsp import (
     validate_cost_matrix,
 )
 from .blocked_fw import blocked_fw, blocked_fw_batch, closure_block
-from .dynamic import DynamicAPSP, UpdateJournal, domain_violations
+from .dynamic import DynamicAPSP, UpdateJournal, apply_updates_batched, domain_violations
 from .errors import (
     APSPError,
     InputValidationError,
@@ -73,7 +73,7 @@ __all__ = [
     "fw_squaring", "fw_squaring_batch", "fw_squaring_early_exit", "init_pred",
     "rkleene", "minplus", "minplus_3d", "minplus_3d_argmin", "minplus_pred",
     "softmin_matmul", "tropical_eye",
-    "DynamicAPSP", "UpdateJournal", "domain_violations",
+    "DynamicAPSP", "UpdateJournal", "apply_updates_batched", "domain_violations",
     "GraphSample", "generate", "generate_batch", "generate_edge_updates",
     "generate_np", "graph_stats", "paper_corpus",
     "reconstruct_path", "reconstruct_path_device", "reconstruct_path_jit", "path_cost",

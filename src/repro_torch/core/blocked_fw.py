@@ -27,8 +27,9 @@ predecessors through the same rounds on the witness kernels
 predecessors and the split round write new tensors each round, as JAX
 does; the fused round without them updates the state in place.
 
-B = min(256, n) and the fused round unless the caller says otherwise; the
-JAX package's autotune cache is a later slice (ROADMAP.md queue 1).
+Block size and round mode come from the autotune cache's ``fwround|...``
+winners (``kernels.autotune.tune_fw_round``) when the caller gives none,
+else B = min(256, n) and the fused round.
 """
 
 from __future__ import annotations
@@ -70,19 +71,31 @@ def _closure_block_pred(
 
 
 def _resolve_round(
-    h: torch.Tensor, block_size: Optional[int], round_mode: Optional[str]
+    h: torch.Tensor,
+    block_size: Optional[int],
+    round_mode: Optional[str],
+    sr: Semiring,
+    with_pred: bool = False,
 ) -> Tuple[int, str]:
-    """Explicit arguments win; else the compiled-in defaults (fused round,
-    B = min(256, n)).
+    """Explicit arguments win; else the autotune ``fwround`` winner
+    (``kernels.autotune.lookup_fw_round``, a dict read); else the
+    compiled-in defaults (fused round, B = min(256, n)).
 
-    A predecessor solve given no mode runs the canonical fused round, as in
-    the JAX package, which pins it there against its autotune cache: fused
-    and split rounds emit different (equally valid) tie witnesses, and a
-    solve's preds must not depend on a tuned choice.  With no cache here,
-    every solve given no mode runs fused.  Distances are mode-independent."""
+    Predecessor solves pin ``round_mode`` to the canonical fused round
+    instead of consulting the cache, as in the JAX package: fused and split
+    rounds emit different (equally valid) tie witnesses, and the per-size
+    cache must never make a batched solve and a per-graph solve disagree on
+    preds.  Distances are mode-independent either way."""
     n = h.shape[-1]
-    block_size = 256 if block_size is None else block_size
-    round_mode = "fused" if round_mode is None else round_mode
+    if block_size is None or round_mode is None:
+        from repro_torch.kernels import autotune, ops
+
+        won = autotune.lookup_fw_round(ops.backend(h), h.dtype, n,
+                                       g=h.shape[0] if h.ndim == 3 else 0, semiring=sr.name)
+        if block_size is None:
+            block_size = won.get("block_size", 256)
+        if round_mode is None:
+            round_mode = "fused" if with_pred else won.get("round_mode", "fused")
     if round_mode not in ("fused", "split"):
         raise ValueError(f"round_mode must be 'fused' or 'split', got {round_mode!r}")
     return min(int(block_size), n), round_mode
@@ -134,7 +147,7 @@ def blocked_fw(
     """
     ops = _ops()
     sr = get_semiring(semiring)
-    b, round_mode = _resolve_round(h, block_size, round_mode)
+    b, round_mode = _resolve_round(h, block_size, round_mode, sr, with_pred)
     n = h.shape[-1]
     d = pad_to_multiple(h, b, sr)
     nblk = d.shape[-1] // b

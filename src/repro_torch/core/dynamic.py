@@ -45,8 +45,9 @@ Batch semantics: a batch is a set of "set edge (u, v) to w" requests;
 duplicate (u, v) entries resolve last-wins.  Self-loops are rejected.
 Setting ``w = semiring.zero`` deletes the edge.
 
-Not ported yet (ROADMAP.md queue 1): ``apply_updates_batched``, the
-serving pool's cross-graph drain, with its (G, n, n) rank-k fixpoint.
+:func:`apply_updates_batched` is the serving pool's cross-graph drain:
+same-shape decrease batches of several engines run as one (G, n, n)
+rank-k fixpoint, one batched launch a pass.
 """
 
 from __future__ import annotations
@@ -66,7 +67,7 @@ from .floyd_warshall import init_pred
 from .paths import _host, _np_mul, reconstruct_path, reconstruct_path_device
 from .semiring import Semiring, SemiringLike, ceil_log2, default_device, get_semiring
 
-__all__ = ["DynamicAPSP", "UpdateJournal", "domain_violations"]
+__all__ = ["DynamicAPSP", "UpdateJournal", "apply_updates_batched", "domain_violations"]
 
 
 def domain_violations(x, semiring: SemiringLike) -> np.ndarray:
@@ -235,6 +236,27 @@ def _rank_k_fixpoint(dist, pred, u, v, w, *, semiring, with_pred, max_passes):
         moved = _moved(sr, z, d)
         d, p, passes = z, (pz if with_pred else p), passes + 1
     return d, p, passes
+
+
+def _rank_k_fixpoint_batch(dist, pred, u, v, w, *, semiring, with_pred, max_passes):
+    """The rank-k fixpoint over a (G, n, n) stack with (G, k) edges — the
+    pool's batched drain.  All graphs share the loop, which runs until every
+    graph is at its fixpoint (converged graphs ride the extra passes as
+    exact no-ops); ``ever`` says per graph whether its state moved, for
+    the versions.  One device sync a pass, on the per-graph flags."""
+    from repro_torch.kernels import ops as kops
+
+    sr = semiring
+    g = dist.shape[0]
+    d, p, passes = dist, pred, 0
+    moved = torch.ones(g, dtype=torch.bool)
+    ever = torch.zeros(g, dtype=torch.bool)
+    while bool(moved.any()) and passes < max_passes:
+        z, pz = kops.rank_k_update(d, u, v, w, pred=p if with_pred else None, semiring=sr)
+        moved = sr.better(z, d).flatten(1).any(dim=1).cpu()
+        ever |= moved
+        d, p, passes = z, (pz if with_pred else p), passes + 1
+    return d, p, ever, passes
 
 
 def _affected_mask(dist, pred, u, v, w_old, *, semiring, use_pred):
@@ -755,6 +777,31 @@ class DynamicAPSP:
         info.update(path="warm_resolve", iters=iters)
         return info
 
+    # -- batched application (serving-tier drains) -------------------------
+
+    @staticmethod
+    def _classify_batch(eng: "DynamicAPSP", batch):
+        """Normalize one (u, v, w) batch and decide batched-dispatch
+        eligibility.  Returns ``("noop", info)``, ``("defer", None)``
+        (worsenings / plateau semirings / validation failures — anything
+        the shared rank-k pass cannot express), or ``("rank_k", (u, v, w,
+        n_updates))`` with the decrease subset."""
+        sr = eng._sr
+        try:
+            u, v, w = eng._normalize(*batch)
+        except UpdateError:
+            return "defer", None
+        if u.size == 0:
+            return "noop", {"path": "noop", "n_updates": 0}
+        old = eng._h[u, v]
+        worse = np.asarray(sr.better(old, w))
+        changed = np.asarray(sr.better(w, old))
+        if not sr.monotone_mul or worse.any():
+            return "defer", None
+        if not changed.any():
+            return "noop", {"path": "noop", "n_updates": int(u.size)}
+        return "rank_k", (u[changed], v[changed], w[changed], int(u.size))
+
     # -- queries -----------------------------------------------------------
 
     def path(self, i: int, j: int, *, max_len: Optional[int] = None) -> Optional[List[int]]:
@@ -784,3 +831,83 @@ class DynamicAPSP:
             # reachable but truncated -> host pred-walk fallback
             return reconstruct_path(self._pred, i, j)
         return p[: int(length)].tolist()
+
+
+def apply_updates_batched(engines, batches):
+    """Apply one update batch per engine, coalescing same-shape decrease
+    batches into one (G, n, n) rank-k fixpoint — the serving pool's
+    cross-graph drain (one batched launch a pass instead of a per-slot
+    loop).
+
+    ``engines`` / ``batches`` are parallel lists; each batch is an
+    ``(u, v, w)`` triple in :meth:`DynamicAPSP.update`'s array form.
+    Engines are grouped by (semiring, with_pred, n, dtype, device,
+    padded-k bucket); each group runs :func:`_rank_k_fixpoint_batch` and
+    commits per-engine state with single-engine semantics: ``h`` mutates
+    only after the dispatch returned, versions bump only for graphs whose
+    state moved, stats mirror :meth:`DynamicAPSP.update`.
+
+    Returns ``(infos, deferred)``: ``infos[i]`` is engine i's info dict
+    (``None`` where deferred, ``"batched": G`` where the group ran) and
+    ``deferred`` lists the indices whose batch must take the per-engine
+    path — worsenings, plateau semirings, validation failures, or a group
+    whose batched dispatch itself raised (those engines are untouched, so
+    the caller's retry machinery sees the true pre-update state).
+    """
+    infos: List[Optional[Dict]] = [None] * len(engines)
+    deferred: List[int] = []
+    groups: Dict[tuple, List[tuple]] = {}
+    for i, (eng, batch) in enumerate(zip(engines, batches)):
+        kind, payload = DynamicAPSP._classify_batch(eng, batch)
+        if kind == "defer":
+            deferred.append(i)
+            continue
+        if kind == "noop":
+            eng.stats["noop"] += 1
+            infos[i] = payload
+            continue
+        u, v, w, n_updates = payload
+        key = (
+            eng._sr.name, eng._with_pred, eng.n, str(eng._dist.dtype), str(eng._device),
+            _bucket_k(int(u.size)),
+        )
+        groups.setdefault(key, []).append((i, eng, u, v, w, n_updates))
+
+    for (_, with_pred, n, _dt, _dev, kb), members in groups.items():
+        lead = members[0][1]
+        sr, dev = lead._sr, lead._device
+        g = len(members)
+        uu = np.zeros((g, kb), np.int32)
+        vv = np.zeros((g, kb), np.int32)
+        ww = np.full((g, kb), sr.zero, np.float32)   # inert pad edges
+        for j, (_, _, u, v, w, _) in enumerate(members):
+            uu[j, : u.size], vv[j, : v.size], ww[j, : w.size] = u, v, w
+        try:
+            d = torch.stack([m[1]._dist for m in members])
+            p = torch.stack([m[1]._pred for m in members]) if with_pred else None
+            d, p, ever, n_passes = _rank_k_fixpoint_batch(
+                d, p, torch.from_numpy(uu).to(dev), torch.from_numpy(vv).to(dev),
+                torch.from_numpy(ww).to(dev, d.dtype),
+                semiring=sr, with_pred=with_pred,
+                max_passes=ceil_log2(min(kb, n - 1) + 1) + 1,
+            )
+        except Exception:
+            # the group's engines are untouched (h mutates below): send them
+            # down the per-engine path and its retry machinery
+            deferred.extend(m[0] for m in members)
+            continue
+        for j, (i, eng, u, v, w, n_updates) in enumerate(members):
+            eng._h[u, v] = w
+            # the per-engine path's journal contract: exactly the h mutation
+            # (the decrease subset), once the dispatch has returned
+            eng._journal_append(u, v, w, eng._version)
+            eng._commit(d[j], p[j] if with_pred else None)
+            eng.stats["rank_k"] += 1
+            eng.stats["rank_k_passes"] += n_passes
+            if bool(ever[j]):
+                eng._version += 1
+            infos[i] = {
+                "path": "rank_k", "n_updates": n_updates, "k_padded": kb,
+                "passes": n_passes, "batched": g,
+            }
+    return infos, sorted(deferred)

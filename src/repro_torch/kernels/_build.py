@@ -22,7 +22,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Any, Dict, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -33,6 +33,7 @@ NVCC_FLAGS = [
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_functions: Dict[Tuple[str, str], Any] = {}
 
 
 def _nvcc() -> str:
@@ -94,6 +95,26 @@ def load(name: str) -> ctypes.CDLL:
             build([name])
             _libs[name] = ctypes.CDLL(str(paths(name)[0]))
         return _libs[name]
+
+
+def function(name: str, entry: str, argtypes: Sequence) -> Any:
+    """The C entry point ``entry`` of ``csrc/<name>.cu`` (returning a
+    ``cudaError_t`` as int), its ``argtypes`` declared once.  ctypes keeps
+    one function object a library, so declaring it on every call from
+    several threads (the serving tier's background drains) would write
+    shared state each launch."""
+    key = (name, entry)
+    fn = _functions.get(key)
+    if fn is None:
+        lib = load(name)
+        with _lock:
+            fn = _functions.get(key)
+            if fn is None:
+                fn = getattr(lib, entry)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+                _functions[key] = fn
+    return fn
 
 
 def ptxas_report(name: str) -> Dict[str, Dict[str, int]]:

@@ -38,6 +38,7 @@ import torch
 
 from repro_torch.core.semiring import SemiringLike, get_semiring
 
+from . import _counts
 from ._codes import semiring_code
 from .ref import fw_block_pred_ref, fw_block_ref
 
@@ -169,17 +170,16 @@ def _launch(name: str, d, p, semiring) -> Tuple[torch.Tensor, Optional[torch.Ten
     plan = closure_launch(b, pred=p is not None)
     lines = (torch.empty(grid_lines_words(b, tiles, p is not None), dtype=torch.int32,
                          device=d.device) if b > MAX_BLOCK else None)
-    fn = _build.load("fw_block").fw_block_launch
-    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p] * 2
-    fn.restype = ctypes.c_int
+    fn = _build.function("fw_block", "fw_block_launch",
+                         [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                         + [ctypes.c_void_p] * 2)
     stream = torch.cuda.current_stream(d.device).cuda_stream
     err = fn(code, int(p is not None), d.data_ptr(), None if p is None else p.data_ptr(),
              z.data_ptr(), None if pz is None else pz.data_ptr(), tiles, b, *plan,
              None if lines is None else lines.data_ptr(), stream)
     if err:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
-    launches[name] += 1
+    _counts.bump(launches, name)
     return z, pz
 
 

@@ -38,6 +38,7 @@ import torch
 
 from repro_torch.core.semiring import SemiringLike, get_semiring
 
+from . import _counts
 from ._codes import semiring_code
 from .fw_block import MAX_BLOCK, closure_launch, fw_block_torch, grid_lines_words
 from .minplus import minplus_torch
@@ -108,10 +109,9 @@ def fw_round_cuda(
     code = semiring_code(sr, "fw_round")
     from . import _build
 
-    fn = _build.load("fw_round").fw_round_launch
-    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6 + [
-        ctypes.c_int] * 10 + [ctypes.c_void_p] * 2
-    fn.restype = ctypes.c_int
+    fn = _build.function("fw_round", "fw_round_launch",
+                         [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6
+                         + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 2)
     shapes = scratch_shapes(g, n, b)
     f32 = dict(dtype=torch.float32, device=d.device)
     w = {k: torch.empty(shapes[k], **f32) for k in ("apiv", "colt", "rowp", "coln", "apv")}
@@ -124,7 +124,8 @@ def fw_round_cuda(
              None if lines is None else lines.data_ptr(), stream)
     if err:
         raise RuntimeError(f"fw_round kernel launch failed: cudaError_t {err}")
-    rounds += 1
+    with _counts.lock:
+        rounds += 1
     return d
 
 

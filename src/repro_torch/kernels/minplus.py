@@ -56,6 +56,7 @@ import torch
 
 from repro_torch.core.semiring import Semiring, SemiringLike, get_semiring
 
+from . import _counts
 from ._codes import semiring_code
 
 __all__ = [
@@ -280,19 +281,18 @@ def _launch(name: str, mode: int, x, y, a, semiring, px=None, py=None, pa=None,
         y = yp
     from . import _build
 
-    fn = _build.load("minplus").minplus_launch
-    fn.argtypes = ([ctypes.c_int] * 3 + [_View, ctypes.c_void_p, ctypes.c_int, _View,
-                                         ctypes.c_longlong, _View, ctypes.c_void_p,
-                                         ctypes.c_void_p, _View, _View, _View]
-                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    fn = _build.function("minplus", "minplus_launch",
+                         [ctypes.c_int] * 3 + [_View, ctypes.c_void_p, ctypes.c_int, _View,
+                                               ctypes.c_longlong, _View, ctypes.c_void_p,
+                                               ctypes.c_void_p, _View, _View, _View]
+                         + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(code, mode, int(a is not None), _view(x), xt.data_ptr() or None, mp,
              _view(y), ny, _view(a), z.data_ptr(), None if out is None else out.data_ptr(),
              _view(px), _view(py), _view(pa), g, m, k, n, int(k_offset), int(j_offset), stream)
     if err:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
-    launches[name] += 1
+    _counts.bump(launches, name)
     return z, out
 
 

@@ -9,8 +9,10 @@ Every entry point of the JAX file is ported: ``minplus``,
 ``minplus_argmin``, ``pred_from_kstar``, ``minplus_pred``,
 ``rank_k_update`` and ``row_restricted_close`` (the dynamic engine's two
 passes), ``fw_block``, ``fw_block_pred``, ``fw_round`` and
-``fw_round_pred``.  The JAX file's autotune consult has no counterpart
-yet: every kernel runs its compiled-in tiles.
+``fw_round_pred``.  The JAX file's per-product autotune consult has no
+counterpart: every kernel derives its tiles from the shape
+(``kernels.autotune`` says why; the blocked solve's round shape, read in
+``core.blocked_fw``, is the one tuned knob).
 
 bf16 operands select the mixed mode, as in the JAX file: each entry point
 upcasts to f32, computes and rounds the value once to the first operand's
@@ -192,7 +194,11 @@ def rank_k_update(
     predecessor is ``pred[v_{k*}, b]``, or ``u_{k*}`` itself where b is
     ``v_{k*}`` (the empty tail); entries that kept their value (k* = -1)
     keep their predecessor.  ``pred_from_kstar`` does not apply: the
-    contraction indexes edges, not nodes.  (n, n) state only.
+    contraction indexes edges, not nodes.
+
+    A (G, n, n) state takes (G, k) edges, each graph its own: one batched
+    launch a pass (G in the grid's z), the pred rule gathered per graph —
+    the computation of ``jax.vmap`` over the (n, n) pass.
 
     bf16 state forms x in f32 and rounds only the result, as the JAX pass
     does under ``jit`` (XLA drops x's round trip through bf16; the JAX
@@ -200,18 +206,32 @@ def rank_k_update(
     """
     sr = get_semiring(semiring)
     cd = torch.float32 if _check_mixed(sr, dist) else dist.dtype
+    single = dist.ndim == 2
+    if single:
+        dist, u, v, w = dist[None], u[None], v[None], w[None]
+        pred = None if pred is None else pred[None]
+    g, n, _ = dist.shape
+    k = u.shape[-1]
     u, v = u.long(), v.long()
-    x = sr.mul(dist[:, u].to(cd), w[None, :].to(cd))   # (n, k): col i = d[:, u_i] ⊗ w_i
-    y = dist[v, :]                                     # (k, n)
+    # x[g, :, i] = d_g[:, u_gi] ⊗ w_gi (n, k); y[g, i, :] = d_g[v_gi, :] (k, n)
+    x = sr.mul(torch.gather(dist, 2, u[:, None, :].expand(g, n, k)).to(cd),
+               w[:, None, :].to(cd))
+    y = torch.gather(dist, 1, v[:, :, None].expand(g, k, n))
     if pred is None:
-        return minplus(x, y, dist, semiring=sr).to(dist.dtype), None
-    z, kstar = minplus_argmin(x, y, dist, semiring=sr)
-    z = z.to(dist.dtype)
-    ks = kstar.clamp(min=0).long()
-    cols = torch.arange(dist.shape[-1], device=dist.device)[None, :]
-    p_via = torch.gather(pred[v, :], 0, ks)      # pred[v_{k*}, b]
-    pz = torch.where(v[ks] == cols, u[ks].to(pred.dtype), p_via)
-    return z, torch.where(kstar < 0, pred, pz)
+        z, pz = minplus(x, y, dist, semiring=sr).to(dist.dtype), None
+    else:
+        z, kstar = minplus_argmin(x, y, dist, semiring=sr)
+        z = z.to(dist.dtype)
+        ks = kstar.clamp(min=0).long()
+        cols = torch.arange(n, device=dist.device)
+        p_via = torch.gather(torch.gather(pred, 1, v[:, :, None].expand(g, k, n)), 1, ks)
+        v_ks = torch.gather(v[:, None, :].expand(g, n, k), 2, ks)   # v_{k*}
+        u_ks = torch.gather(u[:, None, :].expand(g, n, k), 2, ks)   # u_{k*}
+        pz = torch.where(v_ks == cols, u_ks.to(pred.dtype), p_via)
+        pz = torch.where(kstar < 0, pred, pz)
+    if single:
+        return z[0], None if pz is None else pz[0]
+    return z, pz
 
 
 def row_restricted_close(

@@ -46,6 +46,7 @@ import torch
 
 from repro_torch.core.semiring import SemiringLike, get_semiring
 
+from . import _counts
 from ._codes import semiring_code
 from .minplus import minplus_argmin_torch, minplus_torch, pred_from_kstar
 
@@ -218,11 +219,10 @@ def _prepare(name: str, d: torch.Tensor, rows: torch.Tensor, pred: Optional[torc
         y[:, :n].copy_(d)
     from . import _build
 
-    fn = _build.load("row_close").row_close_launch
-    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2
-                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 5
-                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    fn = _build.function("row_close", "row_close_launch",
+                         [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2
+                         + [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 5
+                         + [ctypes.c_int] * 7 + [ctypes.c_void_p])
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -243,7 +243,7 @@ def _launch(name: str, d: torch.Tensor, rows: torch.Tensor, pred: Optional[torch
     err = launch()
     if err:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
-    launches[name] += 1
+    _counts.bump(launches, name)
     return z, out
 
 

@@ -788,3 +788,172 @@ def test_generate_batch_on_card(cuda):
     res = repro_torch.solve_batch(h, sizes.cpu().numpy(), method="squaring")
     for i, n in enumerate((30, 100, 64)):
         assert torch.equal(res.unpadded(i).dist, solve(h[i, :n, :n]).dist)
+
+
+# -- the serving tier's shapes: the batched rank-k pass, the pool, serve ----
+
+def _rank_k_operands(rng, g, n, k):
+    """The batched rank-k pass's product operands: x (G, n, k) = d[:, U] ⊗ W,
+    y (G, k, n) = d[V, :], a = the (G, n, n) state."""
+    d = torch.stack([torch.from_numpy(generate_np(rng, n, rho=20.0).h) for _ in range(g)])
+    u = torch.from_numpy(rng.integers(0, n, (g, k)))
+    v = torch.from_numpy(rng.integers(0, n, (g, k)))
+    w = torch.from_numpy(rng.uniform(1, 20, (g, k)).astype(np.float32))
+    x = torch.gather(d, 2, u[:, None, :].expand(g, n, k)) + w[:, None, :]
+    y = torch.gather(d, 1, v[:, :, None].expand(g, k, n))
+    return x.contiguous(), y.contiguous(), d
+
+
+@pytest.mark.parametrize("kind", ["minplus", "minplus_argmin"])
+@pytest.mark.parametrize("g", [2, 4])
+@pytest.mark.parametrize("k", [1, 8, 16, 64])
+@pytest.mark.parametrize("n", [63, 1024])
+def test_batched_rank_k_products_match_plain(cuda, kind, g, k, n):
+    """K = 1-64 with G > 1 in the grid's z: n = 1024 runs the cp.async ring
+    on y's rows as they lie, n = 63 the padded copy."""
+    x, y, d = _rank_k_operands(np.random.default_rng(g * 100 + k), g, n, k)
+    if n % 4 == 0:
+        assert mp._ring_ready(y.to(cuda), n)
+    assert _product_pair(kind, x.to(cuda), y.to(cuda), d.to(cuda), "tropical")
+
+
+@pytest.mark.parametrize("with_pred", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batched_rank_k_update_on_card_matches_cpu(cuda, with_pred, dtype):
+    rng = np.random.default_rng(31)
+    g, n, k = 3, 300, 16
+    d = torch.stack([solve(generate_np(rng, n, rho=10.0).h, device="cpu").dist
+                     for _ in range(g)]).to(dtype)
+    p = torch.stack([init_pred(torch.from_numpy(generate_np(rng, n).h)) for _ in range(g)])
+    u = torch.from_numpy(rng.integers(0, n, (g, k)).astype(np.int32))
+    v = torch.from_numpy(rng.integers(0, n, (g, k)).astype(np.int32))
+    w = torch.from_numpy(rng.uniform(1, 5, (g, k)).astype(np.float32)).to(dtype)
+    pred = p if with_pred else None
+    want = ops.rank_k_update(d, u, v, w, pred=pred)
+    before = _counts()
+    got = ops.rank_k_update(d.to(cuda), u.to(cuda), v.to(cuda), w.to(cuda),
+                            pred=None if pred is None else pred.to(cuda))
+    torch.cuda.synchronize()
+    assert _launched_since(before) == {"minplus_argmin" if with_pred else "minplus": 1}
+    assert torch.equal(got[0].cpu(), want[0])
+    assert not with_pred or torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.parametrize("with_pred", [False, True])
+def test_apply_updates_batched_on_card(cuda, with_pred):
+    """One batched launch a pass; each engine equal to its twin updated with
+    ``update`` (dist, pred, version) and to the CPU's batched drain."""
+    from repro_torch.core import apply_updates_batched
+
+    rng = np.random.default_rng(41)
+    hs = [generate_np(rng, 500, rho=8.0).h for _ in range(4)]
+    card = [DynamicAPSP(h, with_pred=with_pred) for h in hs]
+    twins = [DynamicAPSP(h, with_pred=with_pred) for h in hs]
+    host = [DynamicAPSP(h, with_pred=with_pred, device="cpu") for h in hs]
+    batches = [generate_edge_updates(rng, h, 12) for h in hs]
+    kind = "minplus_argmin" if with_pred else "minplus"
+    before = _counts()
+    infos, deferred = apply_updates_batched(card, batches)
+    assert deferred == [] and all(i["batched"] == 4 for i in infos)
+    assert _launched_since(before) == {kind: infos[0]["passes"]}
+    assert apply_updates_batched(host, batches) == (infos, deferred)
+    for c, t, hh, b in zip(card, twins, host, batches):
+        t.update(*b)
+        assert torch.equal(c.dist, t.dist) and c.version == t.version
+        assert torch.equal(c.dist.cpu(), hh.dist)
+        if with_pred:
+            assert torch.equal(c.pred, t.pred) and torch.equal(c.pred.cpu(), hh.pred)
+
+
+def test_launch_counters_exact_under_threads(cuda):
+    """Kernels launched from eight threads at once (the serving tier's
+    background drains do so): no launch is lost from the counts, and a
+    first call raced from two threads loads the library once."""
+    import threading
+
+    from repro_torch.kernels import _build
+
+    x, y, d = _rank_k_operands(np.random.default_rng(5), 2, 256, 8)
+    x, y, d = x.to(cuda), y.to(cuda), d.to(cuda)
+    want = mp.minplus_torch(x, y, d)
+    loads = []
+    real_build = _build.build
+    _build._libs.pop("minplus", None)
+    _build._functions.pop(("minplus", "minplus_launch"), None)
+    _build.build = lambda names: loads.append(tuple(names)) or real_build(names)
+    bad = []
+    try:
+        def first():
+            if not torch.equal(mp.minplus_cuda(x, y, d), want):
+                bad.append("first")
+
+        ts = [threading.Thread(target=first) for _ in range(2)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(120.0)
+        assert not any(t.is_alive() for t in ts)
+    finally:
+        _build.build = real_build
+    assert loads == [("minplus",)] and not bad
+    before = mp.launches["minplus"]
+
+    def many():
+        for _ in range(50):
+            mp.minplus_cuda(x, y, d)
+
+    ts = [threading.Thread(target=many) for _ in range(8)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(120.0)
+    assert not any(t.is_alive() for t in ts)
+    torch.cuda.synchronize()
+    assert mp.launches["minplus"] - before == 400
+
+
+def test_pool_on_card_matches_cpu_pool(cuda):
+    from repro_torch.launch import EnginePool
+
+    def run(device):
+        pool = EnginePool(method="blocked_fw", with_pred=True, device=device,
+                          backlog_watermark=2, seed=2)
+        rng = np.random.default_rng(2)
+        for gid in range(3):
+            pool.admit(gid, generate_np(rng, 200, rho=20.0).h)
+        out = []
+        try:
+            for _ in range(24):
+                gid = int(rng.integers(0, 3))
+                if rng.uniform() < 0.6:
+                    pool.submit_update(gid, *generate_edge_updates(
+                        rng, pool.slots[gid].engine.h, 6, worsen_frac=0.1))
+                    if pool.backlog() > pool.backlog_watermark:
+                        pool.drain_all()
+                else:
+                    r = pool.query(gid, rng.integers(0, 200, 8), rng.integers(0, 200, 8))
+                    out.append((r.values.tolist(), r.source, r.staleness))
+            pool.recover_all()
+            return out, pool.summary(), [pool.slots[g].engine.dist.cpu() for g in range(3)]
+        finally:
+            pool.close()
+
+    ca, cs, cd = run("cuda")
+    ha, hs, hd = run("cpu")
+    assert ca == ha and cs["pool"] == hs["pool"] and cs["slots"] == hs["slots"]
+    assert cs["pool"]["drain_batched"] >= 1 and cs["slots"]["retries"] == 0
+    assert all(torch.equal(a, b) for a, b in zip(cd, hd))
+
+
+def test_serve_on_card(cuda, tmp_path, monkeypatch):
+    from repro_torch.launch import serve
+
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(tmp_path / "autotune.json"))
+    got = {}
+    assert serve.serve_apsp(32, batch=8, n_max=128, method="blocked_fw",
+                            summary_out=got) == 0
+    assert got["graphs"] == 32
+    assert serve.serve_apsp_dynamic(
+        32, n_max=256, graphs=3, verify_every=8, seed=3,
+        fault_spec="nan:0.2,crash:0.1:3,poison:0.1", deadline_ms=200.0,
+        backlog_watermark=3) == 0

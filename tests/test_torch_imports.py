@@ -43,9 +43,21 @@ def test_port_files_exist():
     "repro_torch.core.apsp",
     "repro_torch.core.semiring",
     "repro_torch.core.graphgen",
+    "repro_torch.launch",
+    "repro_torch.launch.stats",
+    "repro_torch.launch.faults",
+    "repro_torch.launch.executor",
+    "repro_torch.launch.pool",
+    "repro_torch.launch.serve",
+    "repro_torch.checkpoint",
+    "repro_torch.checkpoint.checkpoint",
+    "repro_torch.kernels.autotune",
+    "repro_torch.kernels._counts",
 ])
 def test_new_modules_are_scanned_and_import(module):
     path = ROOT / "src" / (module.replace(".", "/") + ".py")
+    if not path.exists():
+        path = path.with_suffix("") / "__init__.py"
     assert path in PORT_FILES
     assert not [m for m in _imported_modules(path) if _forbidden(m)]
     importlib.import_module(module)
@@ -151,3 +163,48 @@ def test_port_solve_batch_without_jax(method):
         timeout=120,
     )
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+@pytest.mark.parametrize("name,exported", [
+    ("launch.pool", "SlotState EngineSlot EnginePool QueryResult"),
+    ("launch.faults", "FaultSpec FaultInjector InjectedCrash NULL_INJECTOR"),
+    ("launch.executor", "UpdateExecutor"),
+    ("launch.stats", "Counters"),
+])
+def test_launch_exports_what_the_jax_modules_export(name, exported):
+    import repro_torch.launch
+
+    mod = importlib.import_module(f"repro_torch.{name}")
+    assert set(mod.__all__) == set(exported.split())
+    assert set(exported.split()) <= set(repro_torch.launch.__all__)
+
+
+def test_checkpoint_exports_all_but_the_mesh_restore():
+    import repro_torch.checkpoint
+
+    want = {"CheckpointManager", "load_checkpoint", "load_engine_checkpoint",
+            "save_checkpoint", "save_engine_checkpoint"}
+    assert want <= set(repro_torch.checkpoint.__all__)
+    assert "restore_onto_mesh" not in repro_torch.checkpoint.__all__
+
+
+def test_port_serving_tier_without_jax(tmp_path):
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "from repro_torch.launch.serve import serve_apsp, serve_apsp_dynamic\n"
+        "assert serve_apsp(4, batch=4, n_max=12, method='blocked_fw', device='cpu') == 0\n"
+        "assert serve_apsp_dynamic(12, n_max=12, graphs=2, verify_every=4,\n"
+        "                          durability_dir='auto', checkpoint_every=2,\n"
+        "                          fault_spec='crash:0.2:2,crash_restore:0.3',\n"
+        "                          device='cpu') == 0\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               REPRO_TORCH_AUTOTUNE_CACHE=str(tmp_path / "autotune.json"))
+    out = subprocess.run(
+        [sys.executable, "-c", code], env=env, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stderr
