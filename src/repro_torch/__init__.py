@@ -43,6 +43,7 @@ from .core import (
     softmin_matmul,
     solve,
     solve_batch,
+    spd_features,
     tropical_eye,
     validate_tree,
 )
@@ -56,6 +57,6 @@ __all__ = [
     "fw_squaring_early_exit", "rkleene", "minplus", "minplus_3d",
     "minplus_3d_argmin", "minplus_pred", "softmin_matmul", "tropical_eye",
     "DynamicAPSP", "UpdateJournal", "domain_violations",
-    "reconstruct_path", "path_cost", "validate_tree",
+    "reconstruct_path", "path_cost", "validate_tree", "spd_features",
     "APSPError", "InputValidationError", "NegativeCycleError", "UpdateError",
 ]

@@ -7,6 +7,7 @@ from .checkpoint import (
     latest_step,
     load_checkpoint,
     load_engine_checkpoint,
+    restore_onto_mesh,
     save_checkpoint,
     save_engine_checkpoint,
 )
@@ -16,6 +17,7 @@ __all__ = [
     "latest_step",
     "load_checkpoint",
     "load_engine_checkpoint",
+    "restore_onto_mesh",
     "save_checkpoint",
     "save_engine_checkpoint",
 ]

@@ -17,12 +17,14 @@ the next save overwrites.  ``CheckpointManager`` runs saves on a background
 thread (the device->host copy happens synchronously, disk I/O does not
 block the caller) and keeps the last ``keep`` checkpoints.
 
-A state is a tree of dicts, lists and tuples whose leaves are tensors,
-numpy arrays or numbers; leaves are keyed by their path (``"a/b/0"``,
-dict keys sorted), as ``jax.tree_util`` keys them.  numpy has no bf16: a
+A state is a tree of dicts, lists, tuples and dataclasses (a
+``TrainState``) whose leaves are tensors, numpy arrays or numbers; leaves
+are keyed by their path (``"a/b/0"``, dict keys sorted, a dataclass field
+by its name, ``None`` skipped), as ``jax.tree_util`` keys them, so a train
+checkpoint of either package restores in the other.  numpy has no bf16: a
 bf16 tensor is stored as its uint16 bit view, its manifest dtype
-``"bfloat16"``.  The JAX package's elastic ``restore_onto_mesh`` places
-leaves on a device mesh; it waits for the port's distributed slice.
+``"bfloat16"``.  ``restore_onto_mesh`` is the JAX function's single-device
+case; its mesh case (a sharding tree) waits for the distributed slice.
 """
 
 from __future__ import annotations
@@ -37,26 +39,19 @@ import numpy as np
 import torch
 
 from repro_torch.core.convert import to_numpy, to_torch
+from repro_torch.tree import flatten_with_path, tree_map_with_path
 
 __all__ = [
-    "save_checkpoint", "load_checkpoint", "latest_step",
+    "save_checkpoint", "load_checkpoint", "latest_step", "restore_onto_mesh",
     "CheckpointManager", "save_engine_checkpoint", "load_engine_checkpoint",
 ]
 
 _SEP = "/"
 
 
-def _leaves(tree, prefix=()):
-    if tree is None:
-        return
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _leaves(tree[k], prefix + (str(k),))
-    elif isinstance(tree, (list, tuple)):
-        for i, x in enumerate(tree):
-            yield from _leaves(x, prefix + (str(i),))
-    else:
-        yield _SEP.join(prefix), tree
+def _leaves(tree):
+    for path, leaf in flatten_with_path(tree):
+        yield _SEP.join(path), leaf
 
 
 def _flatten(tree):
@@ -131,6 +126,34 @@ def load_checkpoint(directory: str, step: Optional[int] = None):
     with np.load(os.path.join(path, "arrays.npz")) as z:
         flat = {k: z[k] for k in z.files}
     return flat, manifest
+
+
+def restore_onto_mesh(flat: Dict[str, np.ndarray], example_tree, shardings=None, *,
+                      device="cuda"):
+    """Rebuild ``example_tree``'s structure from ``flat`` (a loaded
+    checkpoint), each leaf a new tensor on ``device`` in its example's
+    dtype, with its example's ``requires_grad``.  Raises ``KeyError`` on a
+    missing leaf and ``ValueError`` on a shape that differs, as the JAX
+    function does.  Only its single-device case is ported: a sharding
+    tree raises."""
+    if shardings is not None:
+        raise NotImplementedError(
+            "restore_onto_mesh onto a device mesh waits for the port's distributed "
+            "slice (ROADMAP.md queue 1); pass shardings=None")
+
+    def put(path, example):
+        key = _SEP.join(path)
+        if key not in flat:
+            raise KeyError(f"checkpoint missing leaf {key!r}")
+        arr = flat[key]
+        if tuple(arr.shape) != tuple(example.shape):
+            raise ValueError(f"{key}: shape {arr.shape} != expected {tuple(example.shape)}")
+        if isinstance(example, torch.Tensor):
+            out = torch.from_numpy(np.array(arr)).to(device=device, dtype=example.dtype)
+            return out.requires_grad_(example.requires_grad)
+        return np.asarray(arr).astype(np.asarray(example).dtype)
+
+    return tree_map_with_path(put, example_tree)
 
 
 # -- durable engine snapshots (serving-tier restore path) -------------------

@@ -2,8 +2,9 @@
 ``repro.core``): the five solvers (squaring, its 3D-tensor form, classic
 FW, blocked FW, R-Kleene) behind ``solve`` and the batch engine
 ``solve_batch``, predecessors and path reconstruction, the paper's graph
-generator and corpus, and the dynamic engine ``DynamicAPSP`` with its
-update journal."""
+generator and corpus, the dynamic engine ``DynamicAPSP`` with its update
+journal, and ``spd_features``, the landmark shortest-path features of the
+GNN stack."""
 
 from .apsp import (
     APSPResult,
@@ -47,6 +48,7 @@ from .paths import (
     reconstruct_path,
     reconstruct_path_device,
     reconstruct_path_jit,
+    spd_features,
     validate_tree,
 )
 from .rkleene import rkleene
@@ -77,7 +79,7 @@ __all__ = [
     "GraphSample", "generate", "generate_batch", "generate_edge_updates",
     "generate_np", "graph_stats", "paper_corpus",
     "reconstruct_path", "reconstruct_path_device", "reconstruct_path_jit", "path_cost",
-    "validate_tree",
+    "validate_tree", "spd_features",
     "Semiring", "SEMIRINGS", "get_semiring", "register_semiring",
     "semiring_eye", "pad_pred_to_multiple",
     "APSPError", "InputValidationError", "NegativeCycleError", "UpdateError",

@@ -6,16 +6,21 @@ bfloat16 of its own, so bf16 travels as its uint16 bit view beside the
 dtype name, as ``repro.checkpoint`` stores it; an ``ml_dtypes`` bfloat16
 array (what ``np.asarray`` gives for a JAX bf16 array) is taken as well.
 Every conversion keeps the bits.
+
+The GNN's parameters cross as well: :func:`gnn_params_from_jax` turns the
+JAX params tree (as numpy arrays) into a ``repro_torch.models.GNN``
+``state_dict`` (its key is the tree path joined with ``.``) and
+:func:`gnn_params_to_jax` turns one back into the JAX tree.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["to_torch", "to_numpy"]
+__all__ = ["to_torch", "to_numpy", "gnn_params_from_jax", "gnn_params_to_jax"]
 
 
 def to_torch(a: np.ndarray, device="cpu", dtype: Optional[str] = None) -> torch.Tensor:
@@ -41,3 +46,34 @@ def to_numpy(t: torch.Tensor) -> Tuple[np.ndarray, str]:
         return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
     a = t.numpy()
     return a, str(a.dtype)
+
+
+def gnn_params_from_jax(params_np) -> Dict[str, torch.Tensor]:
+    """JAX GNN params tree (dicts and lists of host arrays) -> a CPU
+    ``state_dict``: ``params["layers"][0]["mlp"][1]["w"]`` is
+    ``"layers.0.mlp.1.w"``."""
+    from repro_torch.tree import flatten_with_path
+
+    return {".".join(path): to_torch(leaf) for path, leaf in flatten_with_path(params_np)}
+
+
+def gnn_params_to_jax(state_dict: Dict[str, torch.Tensor]):
+    """A GNN ``state_dict`` -> the JAX params tree of numpy arrays, lists
+    where a key part is an index, dicts elsewhere."""
+    root: dict = {}
+    for key, t in state_dict.items():
+        *parents, leaf = key.split(".")
+        node = root
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = to_numpy(t)[0]
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        kids = {k: listify(v) for k, v in node.items()}
+        if kids and all(k.isdigit() for k in kids):
+            return [kids[str(i)] for i in range(len(kids))]
+        return kids
+
+    return listify(root)

@@ -13,7 +13,8 @@ Reconstruction walks backwards from j.  Two implementations:
   name.
 
 :func:`path_cost` and :func:`validate_tree` check a solve on the host.
-``spd_features`` comes with the GNN slice (ROADMAP.md queue 1).
+:func:`spd_features` turns the tropical product into landmark
+shortest-path features for the GNN stack.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ __all__ = [
     "reconstruct_path_jit",
     "path_cost",
     "validate_tree",
+    "spd_features",
 ]
 
 
@@ -144,3 +146,42 @@ def validate_tree(h, dist, pred, semiring: SemiringLike = "tropical") -> bool:
     lhs = dist[ii, jj]
     rhs = mul(dist[ii, p], h[p, jj])
     return bool(np.allclose(lhs, rhs, rtol=1e-5, atol=1e-5))
+
+
+def spd_features(h: torch.Tensor, landmarks, *, cap: float = 1e4) -> torch.Tensor:
+    """Landmark SPD node features via the tropical solver.
+
+    Iterates the fused one-hop min-plus relaxation ``d <- d ⊕ d ⊗ h`` over
+    the landmark rows only (``d`` starts as ``h[landmarks]``), to a fixpoint
+    or ``n - 1`` hops, whichever comes first, as the JAX ``while_loop``
+    does: cost O(L * n^2 * D), D the shortest-path hop diameter.  Each
+    hop is one ``kernels.ops.minplus`` call in accumulate mode (on a CUDA
+    ``h``, one launch of the ``minplus`` kernel).  Returns the (n, L)
+    feature matrix ``min(d, cap).T``.
+
+    ``landmarks`` may be a sequence, a numpy array or a tensor on any
+    device.  Divergence by design: the JAX loop tests ``any(z < d)`` on
+    the device; here the host reads it after every hop (one sync a hop).
+    The hop cap stays exactly ``n - 1``, so with a negative cycle the
+    answer is the reference's.  On the card ``h``'s rows are made ready
+    for the kernel's ring once (``ring_rows``), not once a hop.
+    """
+    from repro_torch.kernels import ops
+
+    n = h.shape[0]
+    if not isinstance(landmarks, torch.Tensor):
+        landmarks = torch.from_numpy(np.asarray(landmarks))
+    lm = landmarks.to(device=h.device, dtype=torch.long)
+    d = h[lm].contiguous()                   # (L, n) 1-hop seed distances
+    y = h
+    if h.is_cuda:
+        from repro_torch.kernels.minplus import ring_rows
+
+        y = ring_rows(h)
+    for _ in range(n - 1):
+        z = ops.minplus(d, y, d)             # fused relax step (one more hop)
+        changed = bool((z < d).any())
+        d = z
+        if not changed:
+            break
+    return torch.minimum(d, torch.tensor(cap, dtype=d.dtype, device=d.device)).T

@@ -64,6 +64,7 @@ __all__ = [
     "minplus_argmin_torch",
     "minplus_pred_torch",
     "pred_from_kstar",
+    "ring_rows",
     "minplus_cuda",
     "minplus_argmin_cuda",
     "minplus_pred_cuda",
@@ -246,13 +247,40 @@ def _check(name: str, x, y, a, dtype=torch.float32,
     return g, m, k, n
 
 
-def _ring_ready(y: torch.Tensor, n: int) -> bool:
-    """Whether the ring can copy y's rows as they lie: 16-byte aligned rows
-    (base, row and batch pitch a multiple of 4 floats), N a multiple of 4,
-    and rows that do not overlap."""
+def _ring_limit(y: torch.Tensor, n: int) -> Optional[int]:
+    """The column limit ny (N rounded up to 4) up to which the ring can copy
+    y's rows as they lie, or None where it cannot: the ring copies 16-byte
+    chunks, so rows must be 16-byte aligned (base, row and batch pitch a
+    multiple of 4 floats), must not overlap up to ny, and the storage must
+    hold the last row up to ny.  Columns in [N, ny) are read but only reach
+    output columns that are never stored."""
     k = y.shape[-2]
-    return (y.data_ptr() % 16 == 0 and y.stride(-2) % 4 == 0 and n % 4 == 0
-            and (y.ndim == 2 or y.stride(0) % 4 == 0) and (k <= 1 or y.stride(-2) >= n))
+    ny = -(-n // 4) * 4
+    if not (y.data_ptr() % 16 == 0 and y.stride(-2) % 4 == 0
+            and (y.ndim == 2 or y.stride(0) % 4 == 0) and (k <= 1 or y.stride(-2) >= ny)):
+        return None
+    if ny > n:
+        g = y.shape[0] if y.ndim == 3 else 1
+        end = (y.storage_offset() + (g - 1) * (y.stride(0) if y.ndim == 3 else 0)
+               + (k - 1) * y.stride(-2) + ny)
+        if end * y.element_size() > y.untyped_storage().nbytes():
+            return None
+    return ny
+
+
+def ring_rows(y: torch.Tensor) -> torch.Tensor:
+    """``y`` as the product kernel's ring reads it: ``y`` itself where its
+    rows lie ready (:func:`_ring_limit`), else a copy into rows of pitch N
+    rounded up to 32 floats, returned as a view of ``y``'s shape.  Every
+    launch does this to its ``y``; a caller that passes one ``y`` to many
+    launches (``spd_features``, once a hop) calls it once instead, so the
+    copy is made once."""
+    n = y.shape[-1]
+    if y.shape[-2] == 0 or _ring_limit(y, n) is not None:
+        return y
+    yp = torch.empty(y.shape[:-1] + (-(-n // 32) * 32,), dtype=y.dtype, device=y.device)
+    yp[..., :n].copy_(y)
+    return yp[..., :n]
 
 
 def _launch(name: str, mode: int, x, y, a, semiring, px=None, py=None, pa=None,
@@ -272,13 +300,9 @@ def _launch(name: str, mode: int, x, y, a, semiring, px=None, py=None, pa=None,
     mp = -(-m // 32) * 32
     xt = torch.empty((g, k, mp), dtype=torch.float32, device=x.device)
     ny = n
-    if k and not _ring_ready(y, n):
-        # The ring copies 16-byte chunks: a y whose rows are not so aligned
-        # is copied into rows of pitch N rounded up to 32 floats.
-        ny = -(-n // 32) * 32
-        yp = torch.empty(y.shape[:-1] + (ny,), dtype=torch.float32, device=y.device)
-        yp[..., :n].copy_(y)
-        y = yp
+    if k:
+        y = ring_rows(y)
+        ny = _ring_limit(y, n)
     from . import _build
 
     fn = _build.function("minplus", "minplus_launch",

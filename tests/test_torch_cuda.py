@@ -813,7 +813,7 @@ def test_batched_rank_k_products_match_plain(cuda, kind, g, k, n):
     on y's rows as they lie, n = 63 the padded copy."""
     x, y, d = _rank_k_operands(np.random.default_rng(g * 100 + k), g, n, k)
     if n % 4 == 0:
-        assert mp._ring_ready(y.to(cuda), n)
+        assert mp._ring_limit(y.to(cuda), n) == n
     assert _product_pair(kind, x.to(cuda), y.to(cuda), d.to(cuda), "tropical")
 
 
@@ -957,3 +957,43 @@ def test_serve_on_card(cuda, tmp_path, monkeypatch):
         32, n_max=256, graphs=3, verify_every=8, seed=3,
         fault_spec="nan:0.2,crash:0.1:3,poison:0.1", deadline_ms=200.0,
         backlog_watermark=3) == 0
+
+
+# -- the training slice: spd_features and the GNN train step ---------------
+
+@pytest.mark.parametrize("n,n_landmarks", [(300, 8), (257, 3), (1024, 64)])
+def test_spd_features_on_card_matches_plain(cuda, monkeypatch, n, n_landmarks):
+    """One ``minplus`` launch a hop, the hops of the CPU loop, the same
+    bits; n = 257 takes h's rows padded once (``ring_rows``), not a hop."""
+    h = generate_np(np.random.default_rng(n), n, rho=4.0).h
+    lm = np.linspace(0, n - 1, n_landmarks).astype(np.int64)
+    calls = []
+    real = ops.minplus
+    monkeypatch.setattr(ops, "minplus", lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    want = repro_torch.spd_features(torch.from_numpy(h), lm)
+    hops = len(calls)
+    before = _counts()
+    got = repro_torch.spd_features(torch.from_numpy(h).to(cuda), torch.from_numpy(lm).to(cuda))
+    torch.cuda.synchronize()
+    assert _launched_since(before) == {"minplus": hops} and len(calls) == 2 * hops
+    assert got.is_cuda and _same(got.cpu(), want)
+    y = mp.ring_rows(torch.from_numpy(h).to(cuda))
+    assert mp._ring_limit(y, n) == -(-n // 4) * 4
+
+
+@pytest.mark.parametrize("arch_id", ["gcn-cora", "gin-tu", "pna"])
+def test_gnn_train_steps_on_card_match_cpu(cuda, arch_id):
+    """Three smoke-config steps from one initial state: losses and grad
+    norms within rtol 1e-4 (the card's index_add sums in no fixed order)."""
+    from repro_torch.launch.train import build_smoke_trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        step, state, batches = build_smoke_trainer(arch_id, seed=0, device=dev)
+        out = []
+        for _ in range(3):
+            state, m = step(state, next(batches))
+            out.append((float(m["loss"]), float(m["grad_norm"])))
+        runs[dev] = out
+    np.testing.assert_allclose(runs["cuda"], runs["cpu"], rtol=1e-4)

@@ -53,6 +53,22 @@ def test_port_files_exist():
     "repro_torch.checkpoint.checkpoint",
     "repro_torch.kernels.autotune",
     "repro_torch.kernels._counts",
+    "repro_torch.tree",
+    "repro_torch.models",
+    "repro_torch.models.gnn",
+    "repro_torch.models.layers",
+    "repro_torch.optim",
+    "repro_torch.optim.optimizers",
+    "repro_torch.train",
+    "repro_torch.train.steps",
+    "repro_torch.data",
+    "repro_torch.data.pipeline",
+    "repro_torch.data.sampler",
+    "repro_torch.configs",
+    "repro_torch.configs.base",
+    "repro_torch.configs.gnn_archs",
+    "repro_torch.configs.apsp_arch",
+    "repro_torch.launch.train",
 ])
 def test_new_modules_are_scanned_and_import(module):
     path = ROOT / "src" / (module.replace(".", "/") + ".py")
@@ -180,12 +196,15 @@ def test_launch_exports_what_the_jax_modules_export(name, exported):
 
 
 def test_checkpoint_exports_all_but_the_mesh_restore():
+    """Every name of ``repro.checkpoint``; ``restore_onto_mesh`` in its
+    single-device case only: a mesh (a sharding tree) raises."""
     import repro_torch.checkpoint
 
     want = {"CheckpointManager", "load_checkpoint", "load_engine_checkpoint",
-            "save_checkpoint", "save_engine_checkpoint"}
+            "save_checkpoint", "save_engine_checkpoint", "restore_onto_mesh"}
     assert want <= set(repro_torch.checkpoint.__all__)
-    assert "restore_onto_mesh" not in repro_torch.checkpoint.__all__
+    with pytest.raises(NotImplementedError, match="distributed slice"):
+        repro_torch.checkpoint.restore_onto_mesh({}, {}, shardings={"w": None})
 
 
 def test_port_serving_tier_without_jax(tmp_path):
@@ -203,6 +222,35 @@ def test_port_serving_tier_without_jax(tmp_path):
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                REPRO_TORCH_AUTOTUNE_CACHE=str(tmp_path / "autotune.json"))
+    out = subprocess.run(
+        [sys.executable, "-c", code], env=env, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stderr
+
+
+@pytest.mark.parametrize("arch", ["gcn-cora", "gin-tu", "pna"])
+def test_port_training_path_without_jax(arch):
+    """``spd_features``, two train steps and ``launch.train.main``, in a
+    process where ``jax`` and ``repro`` cannot load."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import numpy as np, torch\n"
+        "import repro_torch\n"
+        "from repro_torch.launch import train\n"
+        "g = repro_torch.generate_np(np.random.default_rng(0), 24)\n"
+        "f = repro_torch.spd_features(torch.from_numpy(g.h), [0, 5], cap=50.0)\n"
+        "assert f.shape == (24, 2) and float(f.max()) <= 50.0\n"
+        f"step, state, batches = train.build_smoke_trainer({arch!r}, device='cpu')\n"
+        "for _ in range(2):\n"
+        "    state, m = step(state, next(batches))\n"
+        "assert int(state.step) == 2 and np.isfinite(float(m['loss']))\n"
+        f"assert train.main(['--arch', {arch!r}, '--steps', '2', '--device', 'cpu']) == 0\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run(
         [sys.executable, "-c", code], env=env, capture_output=True, text=True,
         timeout=120,
