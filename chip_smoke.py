@@ -83,6 +83,27 @@ graph with the 8 SPD features appended, 20 train steps each on the card
 then ``python -m repro_torch.launch.train --arch gcn-cora`` for 6 steps
 and resumed to 9 from its checkpoint.  Float32 products run with TF32 off.
 
+Phase 10 drives NequIP and the distributed solvers: ``nequip`` at its
+published config on the reference's molecule cell (128 molecules of 30
+atoms and 64 edges a batch), 20 train steps on the card (the first 3
+against the CPU within rtol 1e-4, ms a step, busy share, peak memory),
+one batch's energy and forces against the CPU, rotation invariance on
+the card, and ``python -m repro_torch.launch.train --arch nequip`` for 6
+steps and resumed to 9; then ``repro_torch.core.distributed.
+apsp_distributed`` on the N = 8192 graph (B = 512, R-Kleene leaf 4096):
+``squaring``, ``fw`` and ``rkleene`` on a (2, 2) mesh and ``fw`` on the
+(2, 1, 2) multi-pod mesh, four gloo ranks on the one card, and ``fw`` on
+a 1x1 mesh under NCCL, each bit-equal to the single-card solve with each
+rank's ``minplus`` and ``fw_block`` launches equal to the plan, timed
+(gloo-staged collectives on one card, not a multi-GPU figure).
+
+Every launch check reads the port's launch counters (``kernels/
+_counts.py``), never ``torch.profiler``, which can lose a grid of a trace
+(PERF.md §7); the profiler's count of each kernel's grids is printed
+beside the counters', and a grid's ms is read from a trace only where the
+profiler saw at least one grid of it and no more than were launched.
+``python3 chip_smoke.py --profiler-study`` measures the lost grids.
+
 It traces a solve of each path with ``torch.profiler`` (the pred traces
 must hold no gather row: the pred rule runs in ``minplus_pred``'s
 epilogue), holds every kernel against its plain version once more at the
@@ -235,15 +256,51 @@ def median_ms(fn, reps: int = 3) -> float:
     return statistics.median(cuda_ms(fn) for _ in range(reps))
 
 
+def launch_counts():
+    """The port's launch counters by kernel (``fw_round``: its rounds, four
+    grids each), added up by each wrapper where it launches."""
+    return {"fw_round": kernel_module("fw_round").rounds,
+            **{k: v for name in ("minplus", "fw_block", "row_close")
+               for k, v in kernel_module(name).launches.items()}}
+
+
+def lost_launches(prof):
+    """The launch calls (runtime or driver API) of a finished trace whose
+    grid the profiler did not record, each with its place among the
+    trace's launch calls and its ms from the window's start and to its
+    end; and the count of launch calls."""
+    from torch.autograd import DeviceType
+
+    evs = prof.profiler.kineto_results.events()
+    t0 = min(e.start_ns() for e in evs)
+    t1 = max(e.start_ns() + e.duration_ns() for e in evs)
+    seen = {i for e in evs if e.device_type() == DeviceType.CUDA
+            for i in (e.correlation_id(), e.linked_correlation_id()) if i}
+    calls = sorted((e for e in evs if e.device_type() == DeviceType.CPU
+                    and e.name().startswith("cu") and "aunch" in e.name()),
+                   key=lambda e: e.start_ns())
+    lost = [{"call": e.name(), "index": i, "of": len(calls),
+             "ms_from_start": (e.start_ns() - t0) / 1e6,
+             "ms_to_end": (t1 - e.start_ns() - e.duration_ns()) / 1e6}
+            for i, e in enumerate(calls)
+            if not ({e.correlation_id(), e.linked_correlation_id()} & seen)]
+    return lost, len(calls)
+
+
 def device_breakdown(label: str, run):
     """Trace ``run`` with torch.profiler; print and return the device rows
-    (kernels, memcpy, memset) summed by name, the busy ms and the window."""
+    (kernels, memcpy, memset) summed by name, the busy ms, the window and
+    the launches the port's counters saw during ``run`` (the profiler can
+    lose a grid, PERF.md §7: the counters are what launch checks read)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    before = launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
+    after = launch_counts()
+    launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
     events = list(prof.events())
     device = [e for e in events if e.device_type == DeviceType.CUDA]
     check(bool(device), f"{label}: the profiler recorded no device activity")
@@ -258,12 +315,34 @@ def device_breakdown(label: str, run):
           f"device busy {busy:.3f} ms = {100 * busy / window:.1f}%):")
     for name, (ms, count) in sorted(per_kernel.items(), key=lambda kv: -kv[1][0]):
         print(f"  {ms:10.3f} ms  x{count:<4d} {name[:110]}")
-    return per_kernel, busy, window
+    print(f"  launches by the port's counters: {json.dumps(launched)}")
+    lost, n_calls = lost_launches(prof)
+    if lost:
+        print(f"  launch calls whose grid the profiler did not record: {len(lost)} of "
+              f"{n_calls}, places {[c['index'] for c in lost]}, "
+              f"{min(c['ms_from_start'] for c in lost):.3f}-"
+              f"{max(c['ms_from_start'] for c in lost):.3f} ms after the window opened")
+    return per_kernel, busy, window, launched
 
 
 def grid_count(per_kernel, kernel: str) -> int:
-    """Launches of the CUDA grid ``repro_torch::<kernel><...>`` in a trace."""
+    """Grids ``repro_torch::<kernel><...>`` that the profiler recorded in a
+    trace: a printed figure, never a launch count."""
     return sum(c for name, (_, c) in per_kernel.items() if f"repro_torch::{kernel}<" in name)
+
+
+def traced_grid_ms(label: str, per_kernel, launched: int, kernel: str) -> float:
+    """Device ms a grid of ``kernel`` in a trace whose run launched it
+    ``launched`` times (by the counters): the profiler must have seen at
+    least one grid of it and no more than were launched.  Prints the
+    profiler's count beside the counters' and the gap."""
+    seen = grid_count(per_kernel, kernel)
+    check(1 <= seen <= launched, f"{label}: the profiler recorded {seen} {kernel} grids of "
+          f"{launched} launched")
+    if seen != launched:
+        print(f"{label}: the profiler recorded {seen} of {launched} {kernel} grids "
+              f"(gap {launched - seen}); its ms a grid is the mean of those")
+    return grid_ms(per_kernel, kernel)
 
 
 def grid_ms(per_kernel, kernel: str) -> float:
@@ -487,7 +566,7 @@ def times(root: Path) -> int:
     n, b = 8192, 256
     h = torch.from_numpy(repro_torch.generate_np(np.random.default_rng(0), n, rho=2.0).h).cuda()
     got = timings(repro_torch, h, f" ({root})")
-    main_rows, busy, window = got["traces"]["main N=8192"]
+    main_rows, busy, window = got["traces"]["main N=8192"][:3]
     o = n // 2
     piv = h[o:o + b, o:o + b].contiguous()[None]
     ppiv = init_pred(h)[o:o + b, o:o + b].contiguous()[None]
@@ -510,6 +589,104 @@ def times(root: Path) -> int:
         "row_close": row_close_times(h),
         "ptxas_row_close": _build.ptxas_report("row_close"),
     }))
+    return 0
+
+
+def profiler_study(out: Path) -> int:
+    """``--profiler-study [OUT]``: why ``torch.profiler`` loses grids of the port's
+    kernels (PERF.md §7).  Traces windows that launch the port's kernels
+    (through the ctypes wrappers, each C entry point launching with the
+    CUDA runtime that nvcc links into its library) and PyTorch's own, five
+    times each: one ``fw_block`` tile; one ``torch`` add; 32 pairs of both;
+    and twenty times each: one squaring solve at N = 4096 (12 ``minplus``)
+    and one pred solve at N = 8192 (32 ``fw_block_pred``, 64
+    ``minplus_pred``).  Each window runs plain, with a PyTorch kernel
+    first, with the run started 0.02 s after the window opens, and with a
+    0.2 s sleep after the last synchronise before the profiler stops.  For each trace it counts, against the launch
+    counters, the grids recorded, the launch calls recorded, and the
+    launch calls whose grid is missing (``lost_launches``: their place in
+    the window); the events of each first trace go to the JSON file ``out``
+    (by default ``build/profiler_study.json``)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import repro_torch
+    from repro_torch.kernels import _build
+
+    card = nvidia_smi("name,power.limit")
+    print(card)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    _build.build(_build.sources())
+    fb = kernel_module("fw_block")
+    rng = np.random.default_rng(0)
+    tile = torch.from_numpy(in_domain(rng, 256, "tropical")).cuda()[None]
+    x = torch.zeros(1 << 20, device="cuda")
+    h4 = torch.from_numpy(repro_torch.generate_np(np.random.default_rng(0), 4096, rho=2.0).h).cuda()
+    h8 = torch.from_numpy(repro_torch.generate_np(np.random.default_rng(0), 8192, rho=2.0).h).cuda()
+
+    def pairs():
+        for _ in range(32):
+            fb.fw_block_cuda(tile)
+            x.add_(1.0)
+
+    runs = {"one fw_block": lambda: fb.fw_block_cuda(tile),
+            "one torch add": lambda: x.add_(1.0),
+            "32 x (fw_block, torch add)": pairs,
+            "squaring N=4096": lambda: repro_torch.solve(h4, method="squaring"),
+            "with_pred N=8192": lambda: repro_torch.solve(h8, with_pred=True)}
+    modes = {"plain": (False, 0.0, 0.0), "torch kernel first": (True, 0.0, 0.0),
+             "0.02 s settle after the window opens": (False, 0.02, 0.0),
+             "sleep 0.2 s before stop": (False, 0.0, 0.2)}
+    raw, summary = {}, {}
+    for run_label, run in runs.items():
+        run()
+        torch.cuda.synchronize()
+        for mode, (first, settle, sleep) in modes.items():
+            rows = []
+            for rep in range(20 if "N=" in run_label else 5):
+                before = launch_counts()
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    if first:
+                        x.add_(1.0)
+                    if settle:
+                        time.sleep(settle)
+                    run()
+                    torch.cuda.synchronize()
+                    if sleep:
+                        time.sleep(sleep)
+                after = launch_counts()
+                launched = sum(after[k] - before[k] for k in after)
+                evs = prof.profiler.kineto_results.events()
+                t0 = min(e.start_ns() for e in evs)
+                t1 = max(e.start_ns() + e.duration_ns() for e in evs)
+                grids = [e for e in evs if e.device_type() == DeviceType.CUDA
+                         and not e.name().startswith(("Memcpy", "Memset"))]
+                ours = [e for e in grids if "repro_torch::" in e.name()]
+                lost, n_calls = lost_launches(prof)
+                rows.append({"launched_by_counters": launched,
+                             "grids_recorded": len(grids), "ours_recorded": len(ours),
+                             "launch_calls_recorded": n_calls, "calls_without_grid": lost,
+                             "window_ms": (t1 - t0) / 1e6})
+                if rep == 0:
+                    raw[f"{run_label} | {mode}"] = [
+                        (str(e.device_type()), e.name()[:80], (e.start_ns() - t0) / 1e3,
+                         e.duration_ns() / 1e3, e.correlation_id(), e.linked_correlation_id())
+                        for e in sorted(evs, key=lambda e: e.start_ns())]
+            summary[f"{run_label} | {mode}"] = rows
+            print(f"profiler study {run_label} | {mode}: "
+                  + json.dumps([{k: r[k] for k in ("launched_by_counters", "ours_recorded",
+                                                   "grids_recorded", "launch_calls_recorded")}
+                                | {"calls_without_grid": len(r["calls_without_grid"])}
+                                for r in rows]))
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps({"card": card, "summary": summary, "events": raw}))
+    print(json.dumps({"profiler_study": {k: [(r["launched_by_counters"], r["ours_recorded"],
+                                              len(r["calls_without_grid"])) for r in v]
+                                         for k, v in summary.items()}}))
     return 0
 
 
@@ -756,7 +933,7 @@ def drive_dynamic(dev, card: str, n: int = 8192):
     for step in range(twins_until):
         for label, e in traced.items():
             info = {}
-            rows_, busy, window = device_breakdown(
+            rows_, busy, window, launched = device_breakdown(
                 f"update {step} of the {label} engine",
                 lambda: info.update(e.update(*batches[step])))
             summary[f"traced {label} step {step}: {info['path']}"] = {
@@ -765,11 +942,16 @@ def drive_dynamic(dev, card: str, n: int = 8192):
                 # The pred rule runs in row_close_pred's epilogue: the row
                 # update holds no gather row and no witness launch.
                 gathers = [name for name in rows_ if "gather" in name.lower()]
-                check(not gathers and not grid_count(rows_, "row_close_argmin"),
-                      f"update {step} of the {label} engine: gather or witness rows {gathers}")
+                check(not gathers and not launched.get("row_close_argmin"),
+                      f"update {step} of the {label} engine: gather rows {gathers}, "
+                      f"launches {launched}")
+                check(launched.get("row_close_pred") == info["iters"],
+                      f"update {step} of the {label} engine: {launched} for "
+                      f"{info['iters']} passes")
                 print(f"update {step} of the {label} engine: no gather row, no "
-                      f"row_close_argmin; row_close_pred grids in the trace "
-                      f"{grid_count(rows_, 'row_close_pred')} of {info['iters']} passes")
+                      f"row_close_argmin launch; row_close_pred launched {info['iters']} "
+                      f"times, one a pass (counters); the profiler recorded "
+                      f"{grid_count(rows_, 'row_close_pred')} of its grids")
     del traced
 
     return launches, summary, err
@@ -1074,11 +1256,14 @@ def drive_paper(card: str, h16: torch.Tensor, blocked16_ms: float):
     for label, fn in ((f"squaring N={n_sq}", lambda: repro_torch.solve(h_sq, method="squaring")),
                       (f"rkleene N={n16} base=64",
                        lambda: repro_torch.solve(h16, method="rkleene"))):
-        rows_, busy, window = device_breakdown(f"one solve, {label}", fn)
+        rows_, busy, window, launched = device_breakdown(f"one solve, {label}", fn)
+        check(launched == launches[label], f"traced {label}: launches {launched}, the "
+              f"checked solve's {launches[label]}")
         traces[label] = {"busy_share": busy / window, "device_busy_ms": busy, "window_ms": window,
                          "minplus_grids_recorded": grid_count(rows_, "minplus"),
-                         "minplus_launches": launches[label].get("minplus", 0),
-                         "minplus_ms_a_grid": grid_ms(rows_, "minplus")}
+                         "minplus_launches": launched.get("minplus", 0),
+                         "minplus_ms_a_grid": traced_grid_ms(
+                             f"traced {label}", rows_, launched.get("minplus", 0), "minplus")}
         print(f"trace of {label}: {json.dumps(traces[label])}")
     times["traces"] = traces
     times["phase_s"] = time.perf_counter() - t_phase
@@ -1581,7 +1766,7 @@ def drive_training(card: str, scratch: Path, h8192: torch.Tensor, lane_rate: flo
                 worst = max(worst, abs(a - b) / abs(b))
                 check(abs(a - b) <= STEP_RTOL * abs(b),
                       f"{arch_id} step {i + 1} {k}: card {a} against CPU {b}")
-        _, busy, window = device_breakdown(f"one {arch_id} train step, N=2708",
+        _, busy, window, _ = device_breakdown(f"one {arch_id} train step, N=2708",
                                            lambda: step_fn(states["cuda"], batches["cuda"]))
         n_params = sum(v.numel() for _, v in flatten_with_path(params))
         times[arch_id] = {
@@ -1620,6 +1805,307 @@ def drive_training(card: str, scratch: Path, h8192: torch.Tensor, lane_rate: flo
     times["phase_s"] = time.perf_counter() - t_phase
     print(f"phase 9 on {card}: {times['phase_s']:.1f} s; {json.dumps(times)}")
     return launches, times, extra
+
+
+# Phase 10's cells: NequIP's published config on the reference's molecule
+# cell (GNN_SHAPES' "molecule": 128 molecules of 30 atoms and 64 edges a
+# batch), and the distributed solvers on the smoke's N = 8192 graph at the
+# reference's pivot tile (B = 512) and R-Kleene leaf (4096).
+MOLECULE = dict(batch=128, n_atoms=30, n_edges=64)
+DIST_MESHES = {"2x2": ((2, 2), ("data", "model"), False),
+               "2x1x2": ((2, 1, 2), ("pod", "data", "model"), True),
+               "1x1": ((1, 1), ("data", "model"), False)}
+DIST_GLOO_JOBS = (("2x2", "squaring"), ("2x2", "fw"), ("2x2", "rkleene"), ("2x1x2", "fw"))
+DIST_NCCL_JOBS = (("1x1", "fw"),)
+DIST_B, DIST_LEAF = 512, 4096
+
+
+def distributed_plan(method: str, n: int, nr: int, nc: int):
+    """``minplus`` and ``fw_block`` launches of one rank in one distributed
+    solve of n nodes on an nr x nc grid (every rank launches the same):
+    squaring ceil(log2 N) SUMMA products of lcm(nr, nc) panels; blocked FW
+    per pivot one closure, the update, and a panel product for each panel
+    the rank owns (N / nr / B row pivots and N / nc / B column pivots);
+    R-Kleene six SUMMA products and two halves a level above its leaf."""
+    panels = math.lcm(nr, nc)
+    if method == "squaring":
+        n_ = -(-n // panels) * panels
+        return {"minplus": max(1, math.ceil(math.log2(n_))) * panels}
+    mult = DIST_B * panels
+    n_ = -(-n // mult) * mult
+
+    def blocked(m):
+        if method == "rkleene" and m > DIST_LEAF:
+            sub = blocked(m // 2)
+            return {"minplus": 6 * panels + 2 * sub["minplus"], "fw_block": 2 * sub["fw_block"]}
+        b = min(DIST_B, m // nr, m // nc)
+        return {"minplus": m // b + m // nr // b + m // nc // b, "fw_block": m // b}
+
+    return blocked(n_)
+
+
+def distributed_rank(h_path: str, want_path: str, jobs, *, device: str):
+    """Phase 10b on one rank: each (mesh, method) of ``jobs`` solved by
+    ``apsp_distributed`` on the graph at ``h_path``, held bit for bit
+    against the single-card solve at ``want_path``, its launches read from
+    the counters; then solved again, timed (host clock between barriers)."""
+    import torch.distributed as dist
+
+    from repro_torch.core.distributed import apsp_distributed
+    from repro_torch.launch.mesh import make_mesh
+
+    h = torch.from_numpy(np.load(h_path))
+    want = torch.from_numpy(np.load(want_path)).to(device)
+    meshes, out = {}, {}
+    for label, method in jobs:
+        shape, axes, multi_pod = DIST_MESHES[label]
+        if label not in meshes:
+            meshes[label] = make_mesh(shape, axes, device=device)
+
+        def solve():
+            return apsp_distributed(h, mesh=meshes[label], method=method,
+                                    multi_pod=multi_pod, block_size=DIST_B)
+
+        before = launch_counts()
+        got = solve()
+        torch.cuda.synchronize()
+        after = launch_counts()
+        equal = same(got, want)
+        err = 0.0 if equal else abs_err(got, want)
+        del got
+        dist.barrier()
+        t0 = time.perf_counter()
+        solve()
+        torch.cuda.synchronize()
+        dist.barrier()
+        out[f"{label} {method}"] = {
+            "launches": {k: after[k] - before[k] for k in after if after[k] != before[k]},
+            "equal": equal, "max_abs_err": err, "ms": 1e3 * (time.perf_counter() - t0),
+            "device": str(torch.device(device)), "backend": dist.get_backend()}
+    return out
+
+
+def molecule_graph(b: dict) -> dict:
+    """A batch of molecules (B, n, ...) as one disjoint graph, for
+    ``nequip_energy_forces``."""
+    bsz, n = b["positions"].shape[:2]
+    off = torch.arange(bsz, device=b["positions"].device)[:, None, None] * n
+    return {"positions": b["positions"].reshape(-1, 3), "species": b["species"].reshape(-1),
+            "edge_index": (b["edge_index"].long() + off).permute(1, 0, 2).reshape(2, -1),
+            "edge_mask": b["edge_mask"].reshape(-1), "node_mask": b["node_mask"].reshape(-1)}
+
+
+def drive_nequip(card: str, scratch: Path):
+    """Phase 10a: NequIP at its published config on the molecule cell.  20
+    train steps on the card (energy-only MSE, the trainer's loss; loss
+    finite, ``state.step`` 20), the first 3 against the port on the CPU
+    from the same initial state (loss and grad norm within rtol 1e-4); the
+    energy and forces of one batch against the CPU (rtol 1e-4 of the
+    largest magnitude); rotation and translation invariance of each
+    molecule's energy on the card (1e-3, as the reference's test); ms a
+    step (CUDA events, median of steps 5-20), own peak memory, one step
+    traced; no launch of a kernel of this repo (the reference's message
+    passing is XLA, the port's PyTorch); then ``python -m
+    repro_torch.launch.train --arch nequip`` 6 steps and 9 from its
+    checkpoint.  Returns the times."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import molecule_batch_stream
+    from repro_torch.launch.train import nequip_loss
+    from repro_torch.models.nequip import init_nequip, nequip_energy_batch, nequip_energy_forces
+    from repro_torch.optim import make_optimizer, warmup_cosine
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.tree import flatten_with_path, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    arch = get_arch("nequip")
+    cfg = arch.make_config()
+    stream = molecule_batch_stream(**MOLECULE, n_species=cfg.n_species, seed=0)
+    batches = [{k: torch.from_numpy(v) for k, v in next(stream).items() if k != "step"}
+               for _ in range(TRAIN_STEPS)]
+    on = {dev: [{k: v.to(dev) for k, v in b.items()} for b in batches] for dev in ("cpu", "cuda")}
+    opt = make_optimizer(arch.optimizer, warmup_cosine(arch.learning_rate, 20, 10_000))
+    step_fn = make_train_step(lambda p, b: nequip_loss(p, b, cfg), opt)
+    params = init_nequip(torch.Generator().manual_seed(0), cfg, device="cpu")
+    n_params = sum(v.numel() for _, v in flatten_with_path(params))
+    copy = lambda p, dev: p.detach().to(dev, copy=True).requires_grad_()
+    times = {"params": n_params}
+
+    # Energy and forces of the first batch, card against CPU, and the
+    # energies' invariance under a rotation and a translation on the card.
+    cuda_params = tree_map(lambda p: copy(p, "cuda"), params)
+    e_c, f_c = nequip_energy_forces(cuda_params, molecule_graph(on["cuda"][0]), cfg)
+    e_h, f_h = nequip_energy_forces(params, molecule_graph(on["cpu"][0]), cfg)
+    e_err = abs(float(e_c) - float(e_h)) / max(abs(float(e_h)), 1e-6)
+    f_err = float((f_c.cpu() - f_h).abs().max()) / float(f_h.abs().max())
+    check(e_err <= STEP_RTOL and f_err <= STEP_RTOL,
+          f"nequip energy / forces on the card against the CPU: relative errors {e_err}, {f_err}")
+    rng = np.random.default_rng(0)
+    q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+    if np.linalg.det(q) < 0:
+        q[:, 0] *= -1
+    b0 = on["cuda"][0]
+    moved = dict(b0, positions=b0["positions"] @ torch.from_numpy(q.T.astype(np.float32)).cuda()
+                 + torch.from_numpy((rng.normal(size=(1, 1, 3)) * 5).astype(np.float32)).cuda())
+    with torch.no_grad():
+        e0 = nequip_energy_batch(cuda_params, b0, cfg)
+        e1 = nequip_energy_batch(cuda_params, moved, cfg)
+    rot_err = float((e1 - e0).abs().max())
+    check(rot_err <= 1e-3 * max(1.0, float(e0.abs().max())),
+          f"nequip energies change by {rot_err} under a rotation and translation on the card")
+    del cuda_params
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    states = {dev: init_train_state(tree_map(lambda p: copy(p, dev), params), opt)
+              for dev in ("cpu", "cuda")}
+    before = launch_counts()
+    metrics, events = [], []
+    for i in range(TRAIN_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        states["cuda"], m = step_fn(states["cuda"], on["cuda"][i])
+        end.record()
+        metrics.append(m)
+        events.append((start, end))
+    torch.cuda.synchronize()
+    after = launch_counts()
+    check(after == before, f"nequip steps launched kernels of this repo: {before} -> {after}")
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    peak = torch.cuda.max_memory_allocated() - base
+    losses = [float(m["loss"]) for m in metrics]
+    check(all(math.isfinite(x) for x in losses) and int(states["cuda"].step) == TRAIN_STEPS,
+          f"nequip: losses {losses}, step {int(states['cuda'].step)}")
+    worst = 0.0
+    for i in range(CPU_STEPS):
+        states["cpu"], m = step_fn(states["cpu"], on["cpu"][i])
+        for k in ("loss", "grad_norm"):
+            a, b = float(metrics[i][k]), float(m[k])
+            worst = max(worst, abs(a - b) / abs(b))
+            check(abs(a - b) <= STEP_RTOL * abs(b),
+                  f"nequip step {i + 1} {k}: card {a} against CPU {b}")
+    _, busy, window, _ = device_breakdown(
+        "one nequip train step, molecule cell",
+        lambda: step_fn(states["cuda"], on["cuda"][TRAIN_STEPS - 1]))
+    times.update({
+        "ms_per_step": statistics.median(step_ms[4:]), "first_step_ms": step_ms[0],
+        "loss_first": losses[0], "loss_last": losses[-1], "max_rel_err_first_steps": worst,
+        "energy_rel_err": e_err, "forces_rel_err": f_err, "rotation_abs_err": rot_err,
+        "peak_mib": peak / 2 ** 20, "device_busy_share": busy / window})
+    print(f"phase 10a nequip (published: {cfg.n_layers} layers, d_hidden {cfg.d_hidden}, "
+          f"{n_params} params) on the molecule cell (128 x 30 atoms, 64 edges each) on {card}: "
+          f"{TRAIN_STEPS} steps, loss {losses[0]:.4f} -> {losses[-1]:.4f}; the first "
+          f"{CPU_STEPS} equal the CPU's within rtol {STEP_RTOL} (worst {worst:.2e}); energy and "
+          f"forces of one batch within {max(e_err, f_err):.2e} of the CPU; rotated energies "
+          f"within {rot_err:.2e}; {times['ms_per_step']:.3f} ms a step (median of steps "
+          f"5-{TRAIN_STEPS}), first step {step_ms[0]:.1f} ms, peak {peak / 2 ** 20:.1f} MiB, "
+          f"device busy {100 * busy / window:.1f}% of a traced step; no kernel of this repo")
+    del states, on
+
+    ck = scratch / "nequip_ckpt"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for steps in (6, 9):
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch", "nequip",
+             "--steps", str(steps), "--ckpt-dir", str(ck), "--ckpt-every", "3",
+             "--log-every", "3"],
+            capture_output=True, text=True, timeout=300, env=env, cwd=str(ROOT))
+        check(r.returncode == 0 and f"[done] {steps} steps" in r.stdout,
+              f"launch.train --arch nequip --steps {steps}: rc {r.returncode}\n"
+              f"{r.stdout[-2000:]}\n{r.stderr[-2000:]}")
+        check((steps == 9) == ("[resume] restored step 6" in r.stdout),
+              f"launch.train --arch nequip --steps {steps}: resume line wrong:\n{r.stdout}")
+        times[f"launch.train steps={steps} s"] = time.perf_counter() - t0
+        print(f"phase 10a python -m repro_torch.launch.train --arch nequip --steps {steps} on "
+              f"{card}: rc 0 in {times[f'launch.train steps={steps} s']:.1f} s; "
+              + " | ".join(r.stdout.strip().splitlines()))
+    shutil.rmtree(ck, ignore_errors=True)
+    times["phase_s"] = time.perf_counter() - t_phase
+    return times
+
+
+def drive_distributed(card: str, scratch: Path, h_np: np.ndarray, want: torch.Tensor,
+                      lane_rate: float, hold):
+    """Phase 10b: ``apsp_distributed`` on the smoke's N = 8192 graph, B = 512,
+    R-Kleene leaf 4096: squaring, fw and rkleene on a (2, 2) mesh and fw on
+    the (2, 1, 2) multi-pod mesh, four gloo ranks on this one card (gloo
+    stages each broadcast through the host), and fw on a 1x1 mesh under
+    NCCL at world size 1; each result bit-equal to the single-card solve
+    ``want``, each rank's ``minplus`` and ``fw_block`` launches equal to
+    ``distributed_plan``.  First ``minplus`` and ``fw_block`` are held
+    against their plain versions at the slice's shapes (``hold``: a SUMMA
+    panel product, the FW panels and update, the B = 512 pivot closure).
+    Returns (launches by path, times, entries for the kernels line)."""
+    from repro_torch.launch.apsp_run import run_ranks
+
+    t_phase = time.perf_counter()
+    mp, fb = kernel_module("minplus"), kernel_module("fw_block")
+    n, b = h_np.shape[0], DIST_B
+    rng = np.random.default_rng(10)
+    half, panel = n // 2, n // 4
+    x = operand(rng, (half, panel), "tropical")
+    y = operand(rng, (panel, half), "tropical")
+    a = operand(rng, (half, half), "tropical", density=0.2)
+    piv = torch.from_numpy(in_domain(rng, b, "tropical")).cuda()
+    shapes = {   # label: (kernel, args, candidates, bytes)
+        f"SUMMA panel {half}x{panel} x {panel}x{half} accumulate (squaring, 2x2)":
+            ("minplus", (x, y, a), half * panel * half, 4 * (2 * half * panel + 2 * half * half)),
+        f"fw_distributed update {half}x{b} x {b}x{half} accumulate (2x2)":
+            ("minplus", (x[:, :b], y[:b], a), half * b * half, 4 * (2 * half * b + 2 * half * half)),
+        f"fw_distributed row panel {b}x{b} x {b}x{half}":
+            ("minplus", (piv, y[:b]), b * b * half, 4 * (b * b + 2 * b * half)),
+        f"fw_distributed column panel {half}x{b} x {b}x{b}":
+            ("minplus", (x[:, :b], piv), half * b * b, 4 * (b * b + 2 * half * b)),
+        f"fw_distributed pivot closure T=1 B={b}":
+            ("fw_block", (piv[None],), b ** 3, 4 * 2 * b * b),
+    }
+    extra = {"minplus": {}, "fw_block": {}}
+    for label, (kind, args, cand, nbytes) in shapes.items():
+        hold(kind, f"{label} (phase 10b's shape)", *args)
+        cuda_fn = mp.minplus_cuda if kind == "minplus" else fb.fw_block_cuda
+        ms = median_ms(lambda: cuda_fn(*args), reps=10)
+        bound = max(2 * cand / lane_rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3)
+        extra[kind][f"10b {label}"] = {"ms": ms, "bound_ms": bound}
+    del x, y, a, piv
+
+    h_path, want_path = scratch / "dist_h.npy", scratch / "dist_want.npy"
+    np.save(h_path, h_np)
+    np.save(want_path, want.cpu().numpy())
+    runs = {}
+    for backend, world, jobs in (("gloo", 4, DIST_GLOO_JOBS), ("nccl", 1, DIST_NCCL_JOBS)):
+        t0 = time.perf_counter()
+        per_rank = run_ranks(distributed_rank, world, (str(h_path), str(want_path), jobs),
+                             device="cuda", backend=backend, timeout=300)
+        print(f"phase 10b: {world} {backend} rank(s) on {card} ran {[' '.join(j) for j in jobs]} "
+              f"in {time.perf_counter() - t0:.1f} s (process start included)")
+        for label, method in jobs:
+            shape = DIST_MESHES[label][0]
+            nr, nc = math.prod(shape[:-1]), shape[-1]
+            plan = distributed_plan(method, n, nr, nc)
+            key = f"{label} {method}"
+            for rank, out in enumerate(per_rank):
+                got = out[key]
+                check(got["equal"], f"10b {key} on rank {rank} ({backend}): differs from the "
+                      f"single-card solve by {got['max_abs_err']}")
+                check(got["launches"] == plan, f"10b {key} on rank {rank} ({backend}): "
+                      f"launches {got['launches']}, plan {plan}")
+            ms = [out[key]["ms"] for out in per_rank]
+            runs[f"{key} {backend}"] = {"ms": max(ms), "ms_by_rank": ms,
+                                        "launches_per_rank": plan}
+            how = ("gloo-staged collectives on one card, not a multi-GPU figure"
+                   if backend == "gloo" else "one rank: each broadcast an NCCL call to itself")
+            print(f"phase 10b {key} ({backend}, {world} rank(s) on one card) N={n} B={b}: every "
+                  f"rank's result bit-equal to the single-card solve; launches per rank "
+                  f"{json.dumps(plan)} = the plan (counters); {max(ms):.1f} ms a solve, shard "
+                  f"to gather (host clock between barriers; {how})")
+    os.remove(h_path)
+    os.remove(want_path)
+    launches = {f"10b {k} (per rank)": v["launches_per_rank"] for k, v in runs.items()}
+    runs["phase_s"] = time.perf_counter() - t_phase
+    return launches, runs, extra
 
 
 def main() -> int:
@@ -2045,13 +2531,18 @@ def run(scratch: Path) -> int:
         for path, grid in (("main N=8192", "fw_closure_grid"),
                            ("with_pred N=8192", "fw_block_pred_grid"),
                            ("split N=8192", "fw_block_grid")):
-            rows_, _, _ = device_breakdown(f"one solve, {path} B={b}",
-                                           lambda: repro_torch.solve(h8, block_size=b,
-                                                                     **SOLVE_PATHS[path]))
-            large[f"{grid} B={b} (device ms a tile)"] = grid_ms(rows_, grid)
-            large[f"{grid} B={b} (device us a step)"] = 1e3 * grid_ms(rows_, grid) / b
+            rows_, _, _, launched = device_breakdown(
+                f"one solve, {path} B={b}",
+                lambda: repro_torch.solve(h8, block_size=b, **SOLVE_PATHS[path]))
+            key = {"fw_closure_grid": "fw_round", "fw_block_pred_grid": "fw_block_pred",
+                   "fw_block_grid": "fw_block"}[grid]
+            check(launched.get(key) == r_, f"traced {path} B={b}: launches {launched}")
+            tile_ms = traced_grid_ms(f"traced {path} B={b}", rows_, r_, grid)
+            large[f"{grid} B={b} (device ms a tile)"] = tile_ms
+            large[f"{grid} B={b} (device us a step)"] = 1e3 * tile_ms / b
             if path == "main N=8192":
-                large[f"fw_update B={b} (device ms a round)"] = grid_ms(rows_, "fw_update")
+                large[f"fw_update B={b} (device ms a round)"] = traced_grid_ms(
+                    f"traced {path} B={b}", rows_, r_, "fw_update")
         large[f"main N=8192 B={b}"] = median_ms(lambda: repro_torch.solve(h8, block_size=b))
     for split in (False, True):
         res = repro_torch.solve(h2, with_pred=True, block_size=512,
@@ -2074,9 +2565,11 @@ def run(scratch: Path) -> int:
     d16 = repro_torch.solve(h16, block_size=512).dist
     check(same(d16, repro_torch.solve(h16).dist), "N=16384: B=512 dist differs from B=256's")
     del d16
-    rows16, busy16, window16 = device_breakdown(
+    rows16, busy16, window16, launched = device_breakdown(
         "one solve, main N=16384 B=512", lambda: repro_torch.solve(h16, block_size=512))
-    large["closure us a step N=16384 B=512"] = 1e3 * grid_ms(rows16, "fw_closure_grid") / 512
+    check(launched == {"fw_round": 32}, f"traced N=16384 B=512: launches {launched}")
+    large["closure us a step N=16384 B=512"] = 1e3 * traced_grid_ms(
+        "traced main N=16384 B=512", rows16, 32, "fw_closure_grid") / 512
     large["busy share N=16384 B=512"] = busy16 / window16
     print(f"N=16384: B=512 dist equal to the B=256 solve's; solve ms (median of 3) and the "
           f"grid closure on {card}: {json.dumps(large)}")
@@ -2088,20 +2581,26 @@ def run(scratch: Path) -> int:
     h_dev = torch.from_numpy(h_np).to(dev)
     measured = timings(repro_torch, h_dev)
     traces = measured["traces"]
-    per_kernel, busy, window = traces["main N=8192"]
-    grids = {}
-    for kernel in ("fw_closure", "fw_panels", "fw_colpanel", "fw_update"):
-        count = grid_count(per_kernel, kernel)
-        check(count == rounds, f"{kernel} ran {count} times in a solve of {rounds} rounds")
-        grids[kernel] = count
+    # Each traced solve's launches by the counters equal its plan exactly;
+    # the profiler's count of each kernel's grids is printed beside them
+    # (it can lose a grid, PERF.md §7), and a grid's ms is read only where
+    # the profiler saw at least one and no more than were launched.
+    per_kernel, busy, window = traces["main N=8192"][:3]
+    plans = {"main N=8192": {"fw_round": rounds},
+             "with_pred N=8192": {"fw_block_pred": rounds, "minplus_pred": 2 * rounds},
+             "split N=8192": {"fw_block": rounds, "minplus": 3 * rounds},
+             "split with_pred N=8192": {"fw_block_pred": rounds, "minplus_pred": 3 * rounds}}
+    grids_of = {"fw_round": ("fw_closure", "fw_panels", "fw_colpanel", "fw_update")}
+    for path, plan in plans.items():
+        launched = traces[path][3]
+        check(launched == plan, f"traced {path} solve: launches {launched}, expected {plan}")
+        seen = {g_: grid_count(traces[path][0], g_) for k_ in plan for g_ in grids_of.get(k_, (k_,))}
+        print(f"traced {path} solve: launches {json.dumps(launched)} equal the plan (counters); "
+              f"grids the profiler recorded {json.dumps(seen)}")
+    grids = {k: grid_count(per_kernel, k) for k in grids_of["fw_round"]}
     grid_launches_per_round = sum(grids.values()) / rounds
-    round_grid_ms = {k: grid_ms(per_kernel, k) for k in grids}
-    for path, per_round in (("with_pred N=8192", {"fw_block_pred": 1, "minplus_pred": 2}),
-                            ("split N=8192", {"fw_block": 1, "minplus": 3})):
-        for kernel, k_ in per_round.items():
-            count = grid_count(traces[path][0], kernel)
-            check(count == k_ * rounds,
-                  f"{kernel} ran {count} times in a {path} solve of {rounds} rounds")
+    round_grid_ms = {k: traced_grid_ms("traced main N=8192 solve", per_kernel, rounds, k)
+                     for k in grids}
     # The pred rule runs in minplus_pred's epilogue: no gather row is left.
     for path in ("with_pred N=8192", "split with_pred N=8192"):
         gathers = [name for name in traces[path][0] if "gather" in name.lower()]
@@ -2142,8 +2641,10 @@ def run(scratch: Path) -> int:
     torch.cuda.synchronize()
     check(rc.launches == {"row_close": 0, "row_close_argmin": 0, "row_close_pred": 1},
           f"a row_restricted_close pass with preds launched {rc.launches}")
-    pass_rows = device_breakdown("one row_restricted_close pass with preds, r=1024",
-                                 lambda: ops.row_restricted_close(h_dev, rows, pred=p_dev))[0]
+    pass_rows, _, _, launched = device_breakdown(
+        "one row_restricted_close pass with preds, r=1024",
+        lambda: ops.row_restricted_close(h_dev, rows, pred=p_dev))
+    check(launched == {"row_close_pred": 1}, f"the traced pass with preds launched {launched}")
     bad = [name for name in pass_rows if "gather" in name.lower() or "where" in name.lower()]
     check(not bad, f"the traced pass with preds holds gather or where rows {bad}")
     print(f"row_restricted_close with preds: launches row_close_pred only; its trace holds "
@@ -2200,6 +2701,17 @@ def run(scratch: Path) -> int:
     row_close_entry["launches_by_path"] = {
         lbl: {m: c[m] for m in ROW_CLOSE_MODES if c.get(m)}
         for lbl, c in path_launches.items() if any(c.get(m) for m in ROW_CLOSE_MODES)}
+    # 10 (run here, before the kernels line). NequIP at its published config
+    # on the molecule cell; the distributed solvers on the N = 8192 graph,
+    # minplus and fw_block on every rank.
+    nequip_times = drive_nequip(card, scratch)
+    dist_launches, dist_times, dist_extra = drive_distributed(
+        card, scratch, results[8192][0], results[8192][2], lane_rate, compare_new)
+    path_launches.update(dist_launches)
+    for kind, entries in dist_extra.items():
+        serving_extra.setdefault(kind, {}).update(entries)
+    print(f"phase 10 on {card}: {nequip_times['phase_s'] + dist_times['phase_s']:.1f} s; "
+          f"{json.dumps({'10a': nequip_times, '10b': dist_times})}")
 
     # 5. The plain version's time, the bound and the kernels line.
     n, b = 8192, 256
@@ -2350,7 +2862,8 @@ def run(scratch: Path) -> int:
         if kind.startswith("fw_block"):
             # CUDA events around one wrapper call count its host time too;
             # the traced solve's rows give the kernel's own device time.
-            device = grid_ms(traces[path_of[kind]][0], kind)
+            device = traced_grid_ms(f"traced {path_of[kind]} solve", traces[path_of[kind]][0],
+                                    rounds, kind)
             entry["cluster"] = path_clusters[path_of[kind]][kind]
             entry["device_ms"] = device
             entry["ms_per_step"] = device / b
@@ -2395,4 +2908,7 @@ def run(scratch: Path) -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--times":
         sys.exit(times(Path(sys.argv[2])))
+    if sys.argv[1:2] == ["--profiler-study"] and len(sys.argv) <= 3:
+        sys.exit(profiler_study(Path(sys.argv[2]) if len(sys.argv) == 3
+                                else ROOT / "build" / "profiler_study.json"))
     sys.exit(main())

@@ -23,8 +23,9 @@ are keyed by their path (``"a/b/0"``, dict keys sorted, a dataclass field
 by its name, ``None`` skipped), as ``jax.tree_util`` keys them, so a train
 checkpoint of either package restores in the other.  numpy has no bf16: a
 bf16 tensor is stored as its uint16 bit view, its manifest dtype
-``"bfloat16"``.  ``restore_onto_mesh`` is the JAX function's single-device
-case; its mesh case (a sharding tree) waits for the distributed slice.
+``"bfloat16"``.  ``restore_onto_mesh`` restores onto one device, or onto
+a device mesh (a tree of ``repro_torch.sharding.Sharding``), where each
+rank takes its own block of every leaf.
 """
 
 from __future__ import annotations
@@ -131,15 +132,22 @@ def load_checkpoint(directory: str, step: Optional[int] = None):
 def restore_onto_mesh(flat: Dict[str, np.ndarray], example_tree, shardings=None, *,
                       device="cuda"):
     """Rebuild ``example_tree``'s structure from ``flat`` (a loaded
-    checkpoint), each leaf a new tensor on ``device`` in its example's
-    dtype, with its example's ``requires_grad``.  Raises ``KeyError`` on a
-    missing leaf and ``ValueError`` on a shape that differs, as the JAX
-    function does.  Only its single-device case is ported: a sharding
-    tree raises."""
+    checkpoint), each leaf a new tensor in its example's dtype, with its
+    example's ``requires_grad``.  Raises ``KeyError`` on a missing leaf and
+    ``ValueError`` on a shape that differs, as the JAX function does.
+
+    Without ``shardings`` every leaf lands whole on ``device``.  With a
+    tree of ``repro_torch.sharding.Sharding`` of the example's structure
+    (``make_shardings``), each rank takes its own block of each leaf (the
+    whole leaf where its spec shards nothing), on the mesh's device; the
+    example's shape is the global shape."""
+    by_key = None
     if shardings is not None:
-        raise NotImplementedError(
-            "restore_onto_mesh onto a device mesh waits for the port's distributed "
-            "slice (ROADMAP.md queue 1); pass shardings=None")
+        by_key = {_SEP.join(p): s for p, s in flatten_with_path(shardings)}
+        want = {k for k, _ in _leaves(example_tree)}
+        if set(by_key) != want:
+            raise ValueError(f"the sharding tree does not match the state: "
+                             f"{sorted(want ^ set(by_key))[:5]}")
 
     def put(path, example):
         key = _SEP.join(path)
@@ -148,8 +156,12 @@ def restore_onto_mesh(flat: Dict[str, np.ndarray], example_tree, shardings=None,
         arr = flat[key]
         if tuple(arr.shape) != tuple(example.shape):
             raise ValueError(f"{key}: shape {arr.shape} != expected {tuple(example.shape)}")
+        dev = device
+        if by_key is not None:
+            sh = by_key[key]
+            arr, dev = arr[sh.local_slices(arr.shape)], sh.mesh.device
         if isinstance(example, torch.Tensor):
-            out = torch.from_numpy(np.array(arr)).to(device=device, dtype=example.dtype)
+            out = torch.from_numpy(np.array(arr)).to(device=dev, dtype=example.dtype)
             return out.requires_grad_(example.requires_grad)
         return np.asarray(arr).astype(np.asarray(example).dtype)
 

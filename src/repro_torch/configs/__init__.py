@@ -1,6 +1,6 @@
 """Architecture registry of the PyTorch port: ``get_arch(id)`` /
-``ARCH_IDS``, the ids the port runs (the paper's APSP workloads and the
-GNNs gcn-cora, gin-tu and pna).
+``ARCH_IDS``, the ids the port runs (the paper's APSP workloads, NequIP
+and the GNNs gcn-cora, gin-tu and pna).
 
 An id the JAX package knows but the port has not ported yet raises
 ``NotImplementedError`` naming the slice it waits for (ROADMAP.md queue
@@ -8,16 +8,15 @@ An id the JAX package knows but the port has not ported yet raises
 
 from .apsp_arch import APSP, APSPConfig
 from .base import ArchDef, ShapeCell
-from .gnn_archs import GCN_CORA, GIN_TU, PNA
+from .gnn_archs import GCN_CORA, GIN_TU, NEQUIP, PNA
 
-REGISTRY = {a.arch_id: a for a in (GCN_CORA, GIN_TU, PNA, APSP)}
+REGISTRY = {a.arch_id: a for a in (NEQUIP, GCN_CORA, GIN_TU, PNA, APSP)}
 
 ARCH_IDS = list(REGISTRY)
 
 # The JAX package's other ids, by the slice of the port they wait for.
 _LM = "the LM and MIND substrate slice (models/transformer, moe, mla, kvcache, mind)"
 UNPORTED = {
-    "nequip": "the NequIP slice (models/nequip.py, forces by double backward)",
     "yi-9b": _LM, "qwen2-1.5b": _LM, "llama3-405b": _LM, "deepseek-v2-236b": _LM,
     "arctic-480b": _LM, "mind": _LM,
 }

@@ -1,22 +1,40 @@
-"""The GNN architectures of the PyTorch port: gcn-cora, gin-tu and pna, the
-published configs and smoke configs of ``repro.configs.gnn_archs`` letter
-for letter, on the port's ``GNNConfig`` (dtype fields are torch dtypes).
+"""The GNN architectures of the PyTorch port: nequip, gcn-cora, gin-tu and
+pna, the published configs and smoke configs of ``repro.configs.gnn_archs``
+letter for letter, on the port's ``NequIPConfig`` and ``GNNConfig`` (dtype
+fields are torch dtypes).
 
 Paper-technique tie-in: GCN/GIN/PNA can take landmark shortest-path
 features computed by the tropical solver (``core.paths.spd_features``)
 appended to their node features, as ``examples/gnn_node_classification.py``
 does; off by default, to keep the published architectures unmodified.
-NequIP waits for ``models/nequip.py`` (forces by double backward), the
-port's next slice.
+NequIP trains on energy alone, as the reference does; its forces are one
+gradient with respect to the positions.
 """
 
 from __future__ import annotations
 
 from repro_torch.models.gnn import GNNConfig
+from repro_torch.models.nequip import NequIPConfig
 
 from .base import GNN_SHAPES, ArchDef
 
-__all__ = ["GCN_CORA", "GIN_TU", "PNA"]
+__all__ = ["NEQUIP", "GCN_CORA", "GIN_TU", "PNA"]
+
+
+NEQUIP = ArchDef(
+    arch_id="nequip", family="nequip", source="[arXiv:2101.03164; paper]",
+    make_config=lambda **over: NequIPConfig(
+        **{**dict(name="nequip", n_layers=5, d_hidden=32, l_max=2, n_rbf=8,
+                  cutoff=5.0, n_species=64), **over}
+    ),
+    smoke_config=lambda: NequIPConfig(
+        name="nequip-smoke", n_layers=2, d_hidden=8, n_rbf=4, n_species=8
+    ),
+    cells=GNN_SHAPES(),
+    optimizer="adamw", learning_rate=1e-3,
+    notes="E(3)-equivariant tensor products l<=2; energy model, forces via "
+          "autodiff. Runs the GNN shape cells on positions/species inputs.",
+)
 
 
 GCN_CORA = ArchDef(

@@ -10,7 +10,10 @@ Every conversion keeps the bits.
 The GNN's parameters cross as well: :func:`gnn_params_from_jax` turns the
 JAX params tree (as numpy arrays) into a ``repro_torch.models.GNN``
 ``state_dict`` (its key is the tree path joined with ``.``) and
-:func:`gnn_params_to_jax` turns one back into the JAX tree.
+:func:`gnn_params_to_jax` turns one back into the JAX tree.  NequIP's
+parameters cross by the same walk (:func:`nequip_params_from_jax`,
+:func:`nequip_params_to_jax`): ``params["layers"][0]["radial"]["w1"]`` is
+``"layers.0.radial.w1"`` of a ``repro_torch.models.nequip.NequIP``.
 """
 
 from __future__ import annotations
@@ -20,7 +23,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["to_torch", "to_numpy", "gnn_params_from_jax", "gnn_params_to_jax"]
+__all__ = ["to_torch", "to_numpy", "gnn_params_from_jax", "gnn_params_to_jax",
+           "nequip_params_from_jax", "nequip_params_to_jax"]
 
 
 def to_torch(a: np.ndarray, device="cpu", dtype: Optional[str] = None) -> torch.Tensor:
@@ -77,3 +81,8 @@ def gnn_params_to_jax(state_dict: Dict[str, torch.Tensor]):
         return kids
 
     return listify(root)
+
+
+# NequIP's tree (dicts and a list of layers) walks as the GNN's does.
+nequip_params_from_jax = gnn_params_from_jax
+nequip_params_to_jax = gnn_params_to_jax

@@ -165,13 +165,24 @@ def spd_features(h: torch.Tensor, landmarks, *, cap: float = 1e4) -> torch.Tenso
     The hop cap stays exactly ``n - 1``, so with a negative cycle the
     answer is the reference's.  On the card ``h``'s rows are made ready
     for the kernel's ring once (``ring_rows``), not once a hop.
+
+    Landmark ids are checked on the host before any indexing: ids in
+    ``[-n, n)`` are read as numpy reads them (negatives wrap), and any
+    other id raises ``IndexError`` on both devices before anything touches
+    the card.  Divergence by design: the JAX function clamps such an id
+    to the nearest node.
     """
     from repro_torch.kernels import ops
 
     n = h.shape[0]
-    if not isinstance(landmarks, torch.Tensor):
+    if isinstance(landmarks, torch.Tensor):
+        landmarks = landmarks.detach().cpu()
+    else:
         landmarks = torch.from_numpy(np.asarray(landmarks))
-    lm = landmarks.to(device=h.device, dtype=torch.long)
+    lm = landmarks.to(dtype=torch.long)
+    if bool(((lm < -n) | (lm >= n)).any()):
+        raise IndexError(f"spd_features: a landmark id lies outside [{-n}, {n})")
+    lm = torch.where(lm < 0, lm + n, lm).to(h.device)
     d = h[lm].contiguous()                   # (L, n) 1-hop seed distances
     y = h
     if h.is_cuda:

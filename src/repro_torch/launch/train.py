@@ -14,8 +14,11 @@ Fault-tolerance features, as in the reference:
     nothing and skip nothing
 
 It runs the reduced smoke config of the ``gnn`` family (gcn-cora, gin-tu,
-pna).  The other families raise, naming the slice they wait for.  Float32
-matrix products run in full float32 (TF32 off), set explicitly.
+pna) and of ``nequip``, which trains on energy alone (the mean squared
+error of the batch's molecule energies, as the reference's loss), fed by
+``data.molecule_batch_stream``.  The other families raise, naming the
+slice they wait for.  Float32 matrix products run in full float32 (TF32
+off), set explicitly.
 
 Usage:
     python -m repro_torch.launch.train --arch gcn-cora --steps 200 \\
@@ -34,34 +37,53 @@ import torch
 from repro_torch.checkpoint import CheckpointManager, load_checkpoint, restore_onto_mesh
 from repro_torch.checkpoint.checkpoint import latest_step
 from repro_torch.configs import get_arch
-from repro_torch.data import synthetic_graph
+from repro_torch.data import molecule_batch_stream, synthetic_graph
 from repro_torch.models.gnn import init_gnn, loss_gnn
+from repro_torch.models.nequip import init_nequip, nequip_energy_batch
 from repro_torch.optim import make_optimizer, warmup_cosine
 from repro_torch.train import init_train_state, make_train_step
 
-__all__ = ["build_smoke_trainer", "Watchdog", "main"]
+__all__ = ["build_smoke_trainer", "nequip_loss", "Watchdog", "main"]
 
 
 def build_smoke_trainer(arch_id: str, seed: int = 0, *, device="cuda"):
     """(loss_fn-bound train_step, init state, batch iterator) for the
     reduced config of a ported arch family, on ``device``."""
     arch = get_arch(arch_id)
-    if arch.family != "gnn":
-        raise ValueError(f"no smoke trainer for family {arch.family}")
     cfg = arch.smoke_config()
     opt = make_optimizer(arch.optimizer, warmup_cosine(arch.learning_rate, 20, 10_000))
-    params = init_gnn(torch.Generator().manual_seed(seed), cfg, device=device)
-    step_fn = make_train_step(lambda p, g: loss_gnn(p, g, cfg), opt)
-    g = synthetic_graph(n_nodes=64, n_edges=256, d_feat=cfg.d_feat,
-                        n_classes=cfg.n_classes, seed=seed)
-    graph = {k: torch.from_numpy(v).to(device) for k, v in g.items()}
+    gen = torch.Generator().manual_seed(seed)
+    if arch.family == "gnn":
+        params = init_gnn(gen, cfg, device=device)
+        step_fn = make_train_step(lambda p, g: loss_gnn(p, g, cfg), opt)
+        g = synthetic_graph(n_nodes=64, n_edges=256, d_feat=cfg.d_feat,
+                            n_classes=cfg.n_classes, seed=seed)
+        graph = {k: torch.from_numpy(v).to(device) for k, v in g.items()}
 
-    def batches():
-        while True:
-            yield graph
+        def batches():
+            while True:
+                yield graph
+    elif arch.family == "nequip":
+        params = init_nequip(gen, cfg, device=device)
+        step_fn = make_train_step(lambda p, b: nequip_loss(p, b, cfg), opt)
+        stream = molecule_batch_stream(batch=4, n_atoms=8, n_edges=16,
+                                       n_species=cfg.n_species, seed=seed)
+
+        def batches():
+            for b in stream:
+                yield {k: torch.from_numpy(v).to(device) for k, v in b.items() if k != "step"}
+    else:
+        raise ValueError(f"no smoke trainer for family {arch.family}")
 
     state = init_train_state(params, opt)
     return step_fn, state, batches()
+
+
+def nequip_loss(params, batch: dict, cfg):
+    """Energy-only MSE over a batch of molecules -> (loss, {"loss"})."""
+    e = nequip_energy_batch(params, batch, cfg)
+    loss = torch.mean((e - batch["energy"]) ** 2)
+    return loss, {"loss": loss}
 
 
 class Watchdog:

@@ -34,7 +34,7 @@ variance exactly 0 in PNA's ``std``).
 Divergences by design: ``init_gnn`` draws from a ``torch.Generator``
 (other numbers than ``jax.random`` for the same seed) and returns the
 parameter tree only (no sharding specs; ``constrain`` waits for the
-distributed slice).  On the card ``index_add`` sums in no fixed order, so
+LM substrate slice).  On the card ``index_add`` sums in no fixed order, so
 results there agree with the CPU within a tolerance, not bit for bit.
 """
 
@@ -46,7 +46,7 @@ from typing import Any, Optional, Tuple
 import torch
 from torch import nn
 
-from .layers import dense_init
+from .layers import dense_init, module_tree
 
 __all__ = ["GNNConfig", "GNN", "init_gnn", "forward_gnn", "loss_gnn",
            "scatter_sum", "scatter_mean", "scatter_max", "scatter_min"]
@@ -111,19 +111,6 @@ def _mlp_init(gen, dims, dtype) -> nn.ModuleList:
     return nn.ModuleList(_dense(gen, a, b, dtype) for a, b in zip(dims[:-1], dims[1:]))
 
 
-def _tree(module: nn.Module):
-    """The module's parameters in the JAX layout: a ParameterDict is a
-    dict, a ModuleList a list, any other module a dict of its own
-    parameters and children."""
-    if isinstance(module, nn.ParameterDict):
-        return dict(module.items())
-    if isinstance(module, nn.ModuleList):
-        return [_tree(m) for m in module]
-    out = dict(module.named_parameters(recurse=False))
-    out.update({k: _tree(m) for k, m in module.named_children()})
-    return out
-
-
 class GNN(nn.Module):
     """The reference's GNN as a module.  ``generator`` draws the weights on
     the CPU (a seed-0 generator if None), so one seed gives one
@@ -159,7 +146,7 @@ class GNN(nn.Module):
 
     def tree(self) -> dict:
         """The parameters (these tensors, not copies) in the JAX layout."""
-        return _tree(self)
+        return module_tree(self)
 
     def forward(self, graph: dict) -> torch.Tensor:
         return forward_gnn(self.tree(), graph, self.cfg)

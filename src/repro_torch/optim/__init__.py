@@ -1,6 +1,7 @@
 """Optimizers, schedules and clipping of the PyTorch port, ported from
 ``repro.optim``.  Gradient compression (``optim/compression.py``) waits for
-the distributed slice (ROADMAP.md queue 1)."""
+the LM substrate slice, its only user being the LM trainer (ROADMAP.md
+queue 1)."""
 
 from .optimizers import (
     Optimizer,

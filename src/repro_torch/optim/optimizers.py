@@ -15,7 +15,7 @@ so that a train checkpoint has the reference's keys.
 ``update`` takes tensors (``step`` a 0-d integer tensor or an int) and
 returns new trees; the train step adds the updates to the parameters in
 place.  Sharding specs (the reference's ``state_specs``) wait for the
-distributed slice.
+LM substrate slice, with the compressed train step that uses them.
 """
 
 from __future__ import annotations

@@ -14,7 +14,7 @@ the reference's is an int32 array, so a train checkpoint of either
 package has the same keys and dtypes (``params/...``, ``opt_state/...``,
 ``step``; ``err`` only when set).  The int8-compressed step
 (``make_compressed_train_step``) and ``train_state_specs`` wait for the
-distributed slice (ROADMAP.md queue 1).
+LM substrate slice: the LM trainer is their only user (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -40,8 +40,8 @@ class TrainState:
 
 def init_train_state(params, optimizer) -> TrainState:
     """A state at step 0.  The reference's ``n_pods`` (the compressed
-    step's error-feedback residuals in ``err``) waits for the distributed
-    slice."""
+    step's error-feedback residuals in ``err``) waits for the LM
+    substrate slice."""
     return TrainState(
         params=params,
         opt_state=optimizer.init(params),

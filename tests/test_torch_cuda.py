@@ -981,7 +981,20 @@ def test_spd_features_on_card_matches_plain(cuda, monkeypatch, n, n_landmarks):
     assert mp._ring_limit(y, n) == -(-n // 4) * 4
 
 
-@pytest.mark.parametrize("arch_id", ["gcn-cora", "gin-tu", "pna"])
+def test_spd_features_out_of_range_landmark_raises_before_the_card(cuda):
+    """An id outside [-n, n) raises IndexError on the host, with no launch
+    and no device-side assert: the card stays usable."""
+    h = torch.from_numpy(generate_np(np.random.default_rng(0), 64).h).to(cuda)
+    before = _counts()
+    with pytest.raises(IndexError, match=r"outside \[-64, 64\)"):
+        repro_torch.spd_features(h, torch.tensor([3, 64], device=cuda))
+    torch.cuda.synchronize()
+    assert _launched_since(before) == {}
+    got = repro_torch.spd_features(h, [-1])
+    assert _same(got.cpu(), repro_torch.spd_features(h.cpu(), [63]))
+
+
+@pytest.mark.parametrize("arch_id", ["gcn-cora", "gin-tu", "pna", "nequip"])
 def test_gnn_train_steps_on_card_match_cpu(cuda, arch_id):
     """Three smoke-config steps from one initial state: losses and grad
     norms within rtol 1e-4 (the card's index_add sums in no fixed order)."""

@@ -69,6 +69,12 @@ def test_port_files_exist():
     "repro_torch.configs.gnn_archs",
     "repro_torch.configs.apsp_arch",
     "repro_torch.launch.train",
+    "repro_torch.models.nequip",
+    "repro_torch.core.distributed",
+    "repro_torch.core.convert",
+    "repro_torch.launch.mesh",
+    "repro_torch.launch.apsp_run",
+    "repro_torch.sharding",
 ])
 def test_new_modules_are_scanned_and_import(module):
     path = ROOT / "src" / (module.replace(".", "/") + ".py")
@@ -196,15 +202,25 @@ def test_launch_exports_what_the_jax_modules_export(name, exported):
 
 
 def test_checkpoint_exports_all_but_the_mesh_restore():
-    """Every name of ``repro.checkpoint``; ``restore_onto_mesh`` in its
-    single-device case only: a mesh (a sharding tree) raises."""
+    """Every name of ``repro.checkpoint``, ``restore_onto_mesh`` with its
+    mesh case too: a sharding tree that does not match the state raises,
+    and on the one-process host mesh each leaf lands whole."""
+    import numpy as np
+    import torch
+
     import repro_torch.checkpoint
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding import P, make_shardings
 
     want = {"CheckpointManager", "load_checkpoint", "load_engine_checkpoint",
             "save_checkpoint", "save_engine_checkpoint", "restore_onto_mesh"}
     assert want <= set(repro_torch.checkpoint.__all__)
-    with pytest.raises(NotImplementedError, match="distributed slice"):
-        repro_torch.checkpoint.restore_onto_mesh({}, {}, shardings={"w": None})
+    with pytest.raises(ValueError, match="sharding tree does not match"):
+        repro_torch.checkpoint.restore_onto_mesh({}, {"w": torch.zeros(2)}, shardings={})
+    sh = make_shardings(make_host_mesh(device="cpu"), {"w": P("data", "model")})
+    got = repro_torch.checkpoint.restore_onto_mesh(
+        {"w": np.arange(4, dtype=np.float32).reshape(2, 2)}, {"w": torch.zeros(2, 2)}, sh)
+    assert torch.equal(got["w"], torch.arange(4.0).reshape(2, 2))
 
 
 def test_port_serving_tier_without_jax(tmp_path):

@@ -114,3 +114,21 @@ def test_ring_rows_pads_once_and_keeps_ready_rows():
     # The last row's read up to column 64 must stay inside the storage.
     tight = torch.empty(63 * 64 - 1).as_strided((63, 63), (64, 1))
     assert _ring_limit(tight, 63) is None
+
+
+@pytest.mark.parametrize("landmarks", [[0, 7], [5], [-6], np.array([2, 9]), torch.tensor([7])])
+def test_out_of_range_landmark_raises(landmarks, hops):
+    """An id outside [-n, n) raises IndexError before any product (the JAX
+    function clamps it instead: a divergence by design)."""
+    with pytest.raises(IndexError, match=r"outside \[-5, 5\)"):
+        repro_torch.spd_features(torch.from_numpy(_path_graph(5)), landmarks)
+    assert hops == []
+
+
+def test_negative_landmark_wraps_as_jax_reads_it():
+    """Landmark -1 on a 5-node graph is node 4, as in the JAX function."""
+    h = _path_graph(5)
+    want, got = _both(h, np.array([-1, 0, -5]))
+    assert np.array_equal(got, want)
+    node4 = repro_torch.spd_features(torch.from_numpy(h), [4]).numpy()
+    assert np.array_equal(got[:, :1], node4)
