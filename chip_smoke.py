@@ -57,9 +57,9 @@ of one squaring and one R-Kleene solve.
 Phase 8 drives the serving tier (``repro_torch.launch``), with the port's
 autotune cache pointed at a fresh file before phase 1: ``tune_fw_round``
 at n_max = 1024 writes a ``cuda`` entry (the tuned solve equal to the
-default one), then ``serve_apsp`` serves 64 ragged graphs of up to 1024
+default one), then ``serve_apsp`` serves 32 ragged graphs of up to 1024
 nodes, 16 a cycle, by squaring, blocked FW with and without predecessors
-and R-Kleene (graphs/s each); ``serve_apsp_dynamic`` serves 64 requests
+and R-Kleene (graphs/s each); ``serve_apsp_dynamic`` serves 24 requests
 on four N = 8192 slots without chaos, plain and with predecessors (no
 retry, quarantine, poisoned answer or drift; every batched drain of the
 pool defers nothing for a failure, reports its whole group and launches
@@ -97,6 +97,30 @@ a 1x1 mesh under NCCL, each bit-equal to the single-card solve with each
 rank's ``minplus`` and ``fw_block`` launches equal to the plan, timed
 (gloo-staged collectives on one card, not a multi-GPU figure).
 
+Phase 11 drives the LM and MIND substrate, after freeing what the
+earlier phases hold, with random weights drawn on the card: (a)
+``qwen2-1.5b`` at its published config serving 32 prompts of 1024 tokens
+through ``prefill`` and 128 greedy ``decode_step``s (prefill ms, ms a
+step, tokens/s, a traced step's busy share and copy kernels, peak
+memory), decode against teacher-forced ``forward`` in float32 within 1e-3
+of the largest logit, bf16's gap and top-1 agreement as figures, and the
+model cut to 2 layers on the card against the port on the CPU within
+1e-4; (b) its training at 4 x 4096 tokens, 4 microbatches, AdamW, remat
+"full" (ms a step, tokens/s, busy share, peak), and 3 steps of the
+2-layer cut against the CPU within rtol 1e-4; (c) ``deepseek-v2-236b`` at
+its published widths cut to 2 layers (dense first layer, one MoE layer):
+8 prompts of 512 tokens, 32 absorbed decode steps on the (2, B, T, 512) +
+(2, B, T, 64) cache, the share of (token, expert) slots dropped in
+prefill, and decode against forward in float32 with the capacity raised
+until nothing drops; (d) MIND at its published config on ``serve_p99``,
+``serve_bulk``, ``retrieval_cand`` and a train batch of 16384 (users/s,
+retrieval ms, ms a step), interests, top-10 ids and 3 train steps against
+the CPU; (e) the serve and train CLIs at smoke configs (the deepseek
+trainer resumed from its checkpoint); (f) the int8 compressed train step
+on four gloo ranks on the card on a (2, 2, 1) mesh against the plain
+step, the parameters bit-equal across ranks.  No kernel of this repo lies
+on that path: the launch counters must not move.
+
 Every launch check reads the port's launch counters (``kernels/
 _counts.py``), never ``torch.profiler``, which can lose a grid of a trace
 (PERF.md §7); the profiler's count of each kernel's grids is printed
@@ -132,6 +156,7 @@ Run it on two trees in turns, in one run on one card, to compare them.
 from __future__ import annotations
 
 import ctypes
+import functools
 import importlib
 import json
 import math
@@ -172,6 +197,14 @@ LARGE_B = (512, 1024)
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+T_START = time.perf_counter()
+
+
+def elapsed(label: str) -> None:
+    """Print the seconds since the script started, at a phase's start."""
+    print(f"[{time.perf_counter() - T_START:.1f} s] {label}", flush=True)
 
 
 def kernel_module(name: str):
@@ -287,23 +320,37 @@ def lost_launches(prof):
     return lost, len(calls)
 
 
+TRACE_ATTEMPTS = 3
+
+
 def device_breakdown(label: str, run):
     """Trace ``run`` with torch.profiler; print and return the device rows
     (kernels, memcpy, memset) summed by name, the busy ms, the window and
     the launches the port's counters saw during ``run`` (the profiler can
-    lose a grid, PERF.md §7: the counters are what launch checks read)."""
+    lose a grid, PERF.md §7: the counters are what launch checks read).
+    A trace in which the profiler recorded no device activity at all is
+    taken again, up to ``TRACE_ATTEMPTS`` times (``run`` runs once more
+    each time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    before = launch_counts()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    after = launch_counts()
-    launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
-    events = list(prof.events())
-    device = [e for e in events if e.device_type == DeviceType.CUDA]
-    check(bool(device), f"{label}: the profiler recorded no device activity")
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        before = launch_counts()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        after = launch_counts()
+        launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        events = list(prof.events())
+        device = [e for e in events if e.device_type == DeviceType.CUDA]
+        if device:
+            break
+        # The profiler loses the first records of a trace (PERF.md §7): a
+        # window of a few launches can lose them all.  Trace it again.
+        print(f"{label}: the profiler recorded no device activity (attempt {attempt} of "
+              f"{TRACE_ATTEMPTS}, launches by the counters {json.dumps(launched)})")
+    check(bool(device), f"{label}: the profiler recorded no device activity in "
+          f"{TRACE_ATTEMPTS} traces")
     window = (max(e.time_range.end for e in events)
               - min(e.time_range.start for e in events)) / 1e3
     busy = sum(e.time_range.end - e.time_range.start for e in device) / 1e3
@@ -463,6 +510,14 @@ SASS_FUNC = re.compile(r"Function : (\S+)")
 SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
 
 
+@functools.lru_cache(maxsize=None)
+def sass_text(lib: str) -> str:
+    """``cuobjdump -sass`` of a built library, dumped once a library."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    return subprocess.run([tool, "-sass", lib], capture_output=True, text=True,
+                          check=True).stdout
+
+
 def sass_loops(build, name: str, kernel: str, op: str = "FADD"):
     """The loops of one kernel in the SASS of ``csrc/<name>.cu``'s library
     (``cuobjdump -sass``; ``build`` is ``repro_torch.kernels._build``), one
@@ -472,9 +527,7 @@ def sass_loops(build, name: str, kernel: str, op: str = "FADD"):
     its address range, its length in instructions, its ``op`` count and a
     histogram of its opcodes (with modifiers)."""
     lib, _ = build.paths(name)
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
-                          check=True).stdout
+    text = sass_text(str(lib))
     body, current = [], None
     for line in text.splitlines():
         m = SASS_FUNC.search(line)
@@ -845,7 +898,7 @@ def drive_dynamic(dev, card: str, n: int = 8192):
                 del cold
                 note = ""
                 if e.pred is not None:
-                    check(validate_tree(e.h, e.dist, e.pred),
+                    check(tree_holds(torch.as_tensor(e.h).to(e.dist.device), e.dist, e.pred),
                           f"dynamic step {step} {label}: invalid predecessor tree")
                     h = e.h
                     off = np.isfinite(h) & ~np.eye(n, dtype=bool)
@@ -985,9 +1038,10 @@ def rkleene_launches(n: int, base: int, pred: bool):
 
 
 def tree_holds(h: torch.Tensor, dist: torch.Tensor, pred: torch.Tensor) -> bool:
-    """``validate_tree``'s invariant, tropical, on the card, for states too
-    large to check on the host: every reachable dist[i, j] (i != j) is
-    dist[i, p] + h[p, j] for p = pred[i, j], within the same tolerance."""
+    """``validate_tree``'s invariant, tropical, on the card: every reachable
+    dist[i, j] (i != j) is dist[i, p] + h[p, j] for p = pred[i, j], within
+    the same tolerance.  The host's ``validate_tree`` takes 5.6 s at N =
+    8192, so the smoke calls it once (phase 3b) and this everywhere else."""
     n = h.shape[0]
     reach = torch.isfinite(dist) & ~torch.eye(n, dtype=torch.bool, device=dist.device)
     if bool((pred[reach] < 0).any()):
@@ -1076,7 +1130,8 @@ def drive_paper(card: str, h16: torch.Tensor, blocked16_ms: float):
             t0 = time.perf_counter()
             for i, g in enumerate(corpus):
                 u = res.unpadded(i)
-                check(validate_tree(g.h, u.dist, u.pred), f"corpus graph {i}: invalid pred tree")
+                check(tree_holds(torch.from_numpy(g.h).to(u.dist.device), u.dist, u.pred),
+                      f"corpus graph {i}: invalid pred tree")
             tree_s = time.perf_counter() - t0
         if label.startswith("bucketed blocked_fw"):
             bucketed[label] = res
@@ -1100,7 +1155,7 @@ def drive_paper(card: str, h16: torch.Tensor, blocked16_ms: float):
               f"corpus graph {i}: differs from scipy's Dijkstra")
     del per_graph, hs
     print(f"corpus: bucketed equal to single stack (dist and pred); every pred tree valid "
-          f"({tree_s:.1f} s on the host); graphs 0, 100, ..., 900 equal to Dijkstra; ms on "
+          f"(on the card, {tree_s:.1f} s); graphs 0, 100, ..., 900 equal to Dijkstra; ms on "
           f"{card}: {json.dumps(times)}")
 
     # (b) Each method at full width on one graph of the paper's generator.
@@ -1272,7 +1327,7 @@ def drive_paper(card: str, h16: torch.Tensor, blocked16_ms: float):
 
 
 # Phase 8's request counts: the smoke's time limit cuts these, never n.
-SERVE_REQUESTS = {"8a": 64, "8b": 40, "8c": 64}
+SERVE_REQUESTS = {"8a": 32, "8b": 24, "8c": 64}
 SERVE_METHODS = (("squaring", "squaring", False), ("blocked_fw", "blocked_fw", False),
                  ("blocked_fw --with-pred", "blocked_fw", True), ("rkleene", "rkleene", False))
 
@@ -2108,6 +2163,605 @@ def drive_distributed(card: str, scratch: Path, h_np: np.ndarray, want: torch.Te
     return launches, runs, extra
 
 
+# Phase 11's cells: the LM and MIND substrate at published widths, each
+# cut as printed.  qwen2-1.5b serves 32 prompts of 1024 tokens and 128
+# greedy steps (decode_32k's 128 x 32768, cut for time and memory) and
+# trains on train_4k's 4096-token sequence at a batch of 4 (cut from 256);
+# deepseek-v2-236b keeps its published widths with its depth cut 60 -> 2
+# (the dense first layer and one MoE layer); MIND runs its published
+# config, its train cell at a batch of 16384 (cut from 65536: at 65536 the
+# negatives' gather alone is 21 GB, and its gradient as much again).
+QWEN_SERVE = dict(batch=32, prompt=1024, gen=128)
+QWEN_TRAIN = dict(batch=4, seq=4096, microbatches=4, warmup=2, timed=5)
+DSV2_SERVE = dict(layers=2, batch=8, prompt=512, gen=32)
+MIND_CELLS = dict(serve_p99=512, serve_bulk=262144, train_batch=16384, cpu_train_batch=512)
+COMPRESS_CFG = dict(n_layers=2, d_model=32, n_heads=4, n_kv_heads=2, d_ff=64, vocab=61,
+                    attn_chunk=8)
+SUBSTRATE_SEED = 0
+
+
+def tokens_on(cfg, batch: int, seq: int, dev, seed: int = SUBSTRATE_SEED) -> dict:
+    """One ``lm_batch_stream`` batch (Zipf tokens, labels the next token)."""
+    from repro_torch.data import lm_batch_stream
+
+    b = next(lm_batch_stream(batch=batch, seq_len=seq, vocab=cfg.vocab, seed=seed))
+    return {k: torch.from_numpy(b[k]).to(dev) for k in ("tokens", "labels")}
+
+
+def decode_against_forward(params, cfg, toks: torch.Tensor, steps: int):
+    """Prefill ``toks``, then ``steps`` greedy decode steps; -> (each step's
+    max |decode logits - forward logits at that position| over the largest
+    forward logit there, top-1 agreement, all finite).  ``forward`` runs
+    teacher-forced on the prompt and the decoded tokens."""
+    from repro_torch.models.transformer import decode_step, forward, prefill
+
+    b, s = toks.shape
+    with torch.no_grad():
+        last, cache = prefill(params, toks, cfg, s + steps)
+        seq, dec = [toks], []
+        nxt = torch.argmax(last, -1)[:, None]
+        for _ in range(steps):
+            seq.append(nxt)
+            lg, cache = decode_step(params, cache, nxt, cfg)
+            dec.append(lg)
+            nxt = torch.argmax(lg, -1)[:, None]
+        fwd, _ = forward(params, torch.cat(seq, 1), cfg)
+    ref = fwd[:, s:s + steps].float()
+    got = torch.stack(dec, 1).float()
+    gaps = [float((got[:, i] - ref[:, i]).abs().max() / ref[:, i].abs().max())
+            for i in range(steps)]
+    top1 = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+    return gaps, top1, bool(torch.isfinite(got).all() and torch.isfinite(ref).all())
+
+
+def cast_share(per_kernel) -> float:
+    """Device ms of the copy kernels (dtype casts and copies) in a trace."""
+    return sum(ms for name, (ms, _) in per_kernel.items() if "copy" in name.lower())
+
+
+def to_cpu_tree(params):
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda p: p.detach().cpu().clone().requires_grad_(), params)
+
+
+def drive_qwen(card: str):
+    """11a and 11b: qwen2-1.5b at its published config (28 layers, d_model
+    1536, 12 / 2 heads, d_ff 8960, vocab 151936, QKV bias, tied
+    embeddings, f32 params, bf16 compute), random weights from
+    ``SUBSTRATE_SEED`` drawn on the card."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import decode_step, init_lm, loss_fn, prefill
+    from repro_torch.optim import make_optimizer, warmup_cosine
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.tree import flatten_with_path
+
+    arch = get_arch("qwen2-1.5b")
+    cfg = arch.make_config()
+    out = {"parts_s": {}}
+    t_part = [time.perf_counter()]
+
+    def part(label):
+        now = time.perf_counter()
+        out["parts_s"][label] = now - t_part[0]
+        t_part[0] = now
+
+    gen = torch.Generator(device="cuda").manual_seed(SUBSTRATE_SEED)
+    params, _ = init_lm(gen, cfg)
+    n_params = sum(v.numel() for _, v in flatten_with_path(params))
+    out["params"] = n_params
+
+    # 11a (i) decode against forward in f32, the same weights: 4 prompts, 8 steps.
+    f32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    toks4 = tokens_on(cfg, 4, 64, "cuda")["tokens"]
+    gaps, top1, finite = decode_against_forward(params, f32, toks4, 8)
+    check(finite and max(gaps) <= 1e-3, f"11a qwen f32 decode against forward: gaps {gaps}")
+    # (ii) bf16: finite, the gap and top-1 agreement printed as figures only.
+    gaps16, top16, finite16 = decode_against_forward(params, cfg, toks4, 8)
+    check(finite16, "11a qwen bf16 decode or forward logits are not finite")
+    out.update({"f32_decode_gap": max(gaps), "bf16_decode_gap": max(gaps16),
+                "bf16_top1_agreement": top16})
+    print(f"phase 11a qwen2-1.5b ({n_params} params) on {card}: decode against forward "
+          f"in f32, 4 prompts x 64 + 8 steps: worst gap {max(gaps):.2e} of max|logits| "
+          f"(limit 1e-3); bf16: gap {max(gaps16):.2e}, top-1 agreement {top16:.3f} (figures only)")
+    part("init and decode checks")
+
+    # 11a serving: 32 prompts of 1024 tokens, prefill then 128 greedy steps.
+    sv = QWEN_SERVE
+    toks = tokens_on(cfg, sv["batch"], sv["prompt"], "cuda")["tokens"]
+    max_len = sv["prompt"] + sv["gen"]
+    with torch.no_grad():
+        prefill(params, toks[:2], cfg, max_len)                 # warm-up
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t_pre = cuda_ms(lambda: out.__setitem__("_pf", prefill(params, toks, cfg, max_len)))
+        last, cache = out.pop("_pf")
+        nxt = torch.argmax(last, -1)[:, None]
+        events = []
+        t0 = time.perf_counter()
+        for _ in range(sv["gen"]):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            lg, cache = decode_step(params, cache, nxt, cfg)
+            nxt = torch.argmax(lg, -1)[:, None]
+            end.record()
+            events.append((start, end))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(bool(torch.isfinite(lg).all()), "11a qwen serving logits are not finite")
+        check(int(cache.length[0]) == max_len, f"11a cache length {cache.length.tolist()}")
+        peak = torch.cuda.max_memory_allocated() - base
+        step_ms = statistics.median(a.elapsed_time(b) for a, b in events)
+        part("serving")
+        per_kernel, busy, window, _ = device_breakdown(
+            "one qwen2-1.5b decode step (batch 32, cache 1152)",
+            lambda: decode_step(params, cache, nxt, cfg))
+    casts = cast_share(per_kernel)
+    out.update({"prefill_ms": t_pre, "decode_ms": step_ms, "decode_wall_s": wall,
+                "decode_tokens_per_s": sv["batch"] * 1e3 / step_ms,
+                "tokens_per_s": sv["batch"] * sv["gen"] / (wall + t_pre / 1e3),
+                "decode_busy_share": busy / window, "decode_copy_ms": casts,
+                "decode_copy_share_of_busy": casts / busy, "serve_peak_gib": peak / 2 ** 30})
+    print(f"phase 11a qwen2-1.5b serving on {card} (cut from decode_32k's 128 x 32768 to "
+          f"{sv['batch']} prompts x {sv['prompt']} + {sv['gen']} greedy steps): prefill "
+          f"{t_pre:.1f} ms, {step_ms:.3f} ms a decode step (median of {sv['gen']}), "
+          f"{out['decode_tokens_per_s']:.0f} tokens/s decoding, {out['tokens_per_s']:.0f} "
+          f"tokens/s with the prefill; a traced step busy {100 * busy / window:.1f}%, its "
+          f"copy / cast kernels {casts:.3f} ms of {busy:.3f} ms busy; peak "
+          f"{peak / 2 ** 30:.2f} GiB over the weights")
+    del cache, lg, last
+    part("traced decode step")
+
+    # (iii) card against CPU: 2 layers at full width, f32, 4 prompts of 64 tokens.
+    two = dataclasses.replace(cfg, n_layers=2, compute_dtype=torch.float32)
+    p2, _ = init_lm(torch.Generator(device="cuda").manual_seed(SUBSTRATE_SEED + 1), two)
+    p2_cpu = to_cpu_tree(p2)
+    t4 = tokens_on(cfg, 4, 64, "cuda", seed=1)["tokens"]
+    worst = 0.0
+    with torch.no_grad():
+        lc, cc = prefill(p2, t4, two, 68)
+        lh, ch = prefill(p2_cpu, t4.cpu(), two, 68)
+        for i in range(5):
+            if i:
+                nxt = torch.argmax(lc, -1)[:, None]
+                lc, cc = decode_step(p2, cc, nxt, two)
+                lh, ch = decode_step(p2_cpu, ch, nxt.cpu(), two)
+            gap = float((lc.cpu() - lh).abs().max() / lh.abs().max())
+            worst = max(worst, gap)
+            check(gap <= 1e-4, f"11a qwen 2 layers card against CPU, "
+                  f"{'prefill' if i == 0 else f'decode step {i}'}: gap {gap:.2e}")
+    out["card_vs_cpu_gap"] = worst
+    part("serving card against CPU")
+    print(f"phase 11a qwen2-1.5b cut to 2 layers, f32, card against CPU: prefill and 4 "
+          f"decode steps within {worst:.2e} of max|logits| (limit 1e-4)")
+    del p2, p2_cpu
+
+    # 11b training at published width: AdamW on the ArchDef's schedule,
+    # microbatches 4, remat "full", 4 x 4096 tokens a step.
+    tr = QWEN_TRAIN
+    opt = make_optimizer(arch.optimizer, warmup_cosine(arch.learning_rate, 20, 10_000))
+    step_fn = make_train_step(lambda p, b: loss_fn(p, b, cfg), opt,
+                              microbatches=tr["microbatches"])
+    batch = tokens_on(cfg, tr["batch"], tr["seq"], "cuda", seed=2)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(params, opt)
+    events, losses = [], []
+    for i in range(tr["warmup"] + tr["timed"]):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, m = step_fn(state, batch)
+        end.record()
+        events.append((start, end))
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    losses = [float(x) for x in losses]
+    check(all(math.isfinite(x) for x in losses), f"11b qwen losses {losses}")
+    ms = [a.elapsed_time(b) for a, b in events][tr["warmup"]:]
+    peak = torch.cuda.max_memory_allocated() - base
+    part("training steps")
+    # The trace is of a step at one microbatch (1 x 4096, the timed step's
+    # microbatch): the profiler takes 70 s to process the whole step's
+    # 82 000 launches, a quarter of them as long.
+    one_mb = make_train_step(lambda p, b: loss_fn(p, b, cfg), opt)
+    _, busy, window, _ = device_breakdown(
+        "one qwen2-1.5b train step at one microbatch (1 x 4096)",
+        lambda: one_mb(state, {k: v[:1] for k, v in batch.items()}))
+    part("traced train step")
+    tokens = tr["batch"] * tr["seq"]
+    out.update({"train_ms": statistics.median(ms), "train_tokens_per_s":
+                tokens * 1e3 / statistics.median(ms), "train_busy_share": busy / window,
+                "train_peak_gib": peak / 2 ** 30, "train_losses": losses})
+    print(f"phase 11b qwen2-1.5b training on {card} (train_4k's sequence, batch cut from 256 "
+          f"to {tr['batch']}; AdamW, microbatches {tr['microbatches']}, remat full): "
+          f"{out['train_ms']:.1f} ms a step (median of {tr['timed']} after {tr['warmup']} "
+          f"warm-up), {out['train_tokens_per_s']:.0f} tokens/s, busy {100 * busy / window:.1f}% "
+          f"of a traced one-microbatch step, peak {peak / 2 ** 30:.2f} GiB over the weights; "
+          f"losses {[round(x, 4) for x in losses]}")
+    del state, params, batch
+
+    # 11b check: 2 layers at full width, f32, a batch of 2 x 64, 3 steps, card against CPU.
+    p2, _ = init_lm(torch.Generator(device="cuda").manual_seed(SUBSTRATE_SEED + 2), two)
+    p2_cpu = to_cpu_tree(p2)
+    step2 = make_train_step(lambda p, b: loss_fn(p, b, two), opt)
+    states = {"card": init_train_state(p2, opt), "host": init_train_state(p2_cpu, opt)}
+    worst = 0.0
+    for i in range(3):
+        b = tokens_on(cfg, 2, 64, "cpu", seed=10 + i)
+        states["card"], mc = step2(states["card"], {k: v.cuda() for k, v in b.items()})
+        states["host"], mh = step2(states["host"], b)
+        for k in ("loss", "grad_norm"):
+            a, h = float(mc[k]), float(mh[k])
+            worst = max(worst, abs(a - h) / abs(h))
+            check(abs(a - h) <= 1e-4 * abs(h), f"11b qwen 2 layers step {i + 1} {k}: card {a} "
+                  f"against CPU {h}")
+    out["train_card_vs_cpu_rel"] = worst
+    part("training card against CPU")
+    print(f"phase 11b qwen2-1.5b cut to 2 layers, f32, 3 AdamW steps on 2 x 64: loss and "
+          f"grad norm within {worst:.2e} of the CPU (limit rtol 1e-4)")
+    return out
+
+
+def drive_deepseek(card: str):
+    """11c: deepseek-v2-236b at its published widths, depth cut 60 -> 2 (the
+    dense first layer and one MoE layer): MLA with the absorbed decode
+    against the compressed cache, 160 routed experts top-6 plus 2 shared,
+    bf16 params, random weights drawn on the card."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import decode_step, init_lm, prefill
+    from repro_torch.tree import flatten_with_path
+
+    sv = DSV2_SERVE
+    cfg = get_arch("deepseek-v2-236b").make_config(n_layers=sv["layers"])
+    out = {}
+    params, _ = init_lm(torch.Generator(device="cuda").manual_seed(SUBSTRATE_SEED), cfg)
+    n_params = sum(v.numel() for _, v in flatten_with_path(params))
+    toks = tokens_on(cfg, sv["batch"], sv["prompt"], "cuda")["tokens"]
+    max_len = sv["prompt"] + sv["gen"]
+    with torch.no_grad():
+        prefill(params, toks[:1, :64], cfg, 128)                # warm-up
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with moe.record_routing() as log:
+            t_pre = cuda_ms(lambda: out.__setitem__("_pf", prefill(params, toks, cfg, max_len)))
+        kept = sum(int(a) for a, _ in log)
+        routed = sum(int(b) for _, b in log)
+        last, cache = out.pop("_pf")
+        check(tuple(cache.ckv.shape) == (2, sv["batch"], max_len, 512)
+              and tuple(cache.kpe.shape) == (2, sv["batch"], max_len, 64),
+              f"11c cache shapes {tuple(cache.ckv.shape)}, {tuple(cache.kpe.shape)}")
+        nxt = torch.argmax(last, -1)[:, None]
+        events = []
+        for _ in range(sv["gen"]):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            lg, cache = decode_step(params, cache, nxt, cfg)
+            nxt = torch.argmax(lg, -1)[:, None]
+            end.record()
+            events.append((start, end))
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(lg).all()), "11c deepseek logits are not finite")
+        peak = torch.cuda.max_memory_allocated() - base
+    step_ms = statistics.median(a.elapsed_time(b) for a, b in events)
+    out.update({"params": n_params, "prefill_ms": t_pre, "decode_ms": step_ms,
+                "peak_gib": peak / 2 ** 30, "prefill_dropped_share": 1 - kept / routed,
+                "cache_values_per_token_layer": cache.ckv.shape[-1] + cache.kpe.shape[-1]})
+    print(f"phase 11c deepseek-v2-236b (published widths, depth cut 60 -> 2: the dense first "
+          f"layer and one MoE layer; {n_params} params) on {card}: {sv['batch']} prompts x "
+          f"{sv['prompt']}: prefill {t_pre:.1f} ms, {100 * (1 - kept / routed):.2f}% of "
+          f"(token, expert) slots dropped; {step_ms:.3f} ms an absorbed decode step (median of "
+          f"{sv['gen']}); peak {peak / 2 ** 30:.2f} GiB over the weights; caches "
+          f"{tuple(cache.ckv.shape)} + {tuple(cache.kpe.shape)} = "
+          f"{out['cache_values_per_token_layer']} values a token a layer")
+    del cache, lg, last
+
+    # Decode against forward in f32, capacity raised until nothing drops
+    # (a check setting: capacity drops depend on the batch).
+    f32 = dataclasses.replace(cfg, compute_dtype=torch.float32,
+                              moe_capacity_factor=cfg.n_experts / cfg.moe_top_k + 1.0)
+    t2 = tokens_on(cfg, 2, 64, "cuda", seed=1)["tokens"]
+    with moe.record_routing() as log:
+        gaps, top1, finite = decode_against_forward(params, f32, t2, 8)
+    dropped = sum(int(b) - int(a) for a, b in log)
+    check(dropped == 0, f"11c f32 check: {dropped} slots dropped at capacity factor "
+          f"{f32.moe_capacity_factor}")
+    check(finite and max(gaps) <= 1e-3, f"11c deepseek f32 decode against forward: gaps {gaps}")
+    out.update({"f32_decode_gap": max(gaps), "f32_top1": top1,
+                "check_capacity_factor": f32.moe_capacity_factor})
+    print(f"phase 11c deepseek f32, capacity factor raised to {f32.moe_capacity_factor:.4g} "
+          f"(nothing dropped), 2 prompts x 64 + 8 absorbed decode steps against forward: worst "
+          f"gap {max(gaps):.2e} of max|logits| (limit 1e-3)")
+    del params
+    return out
+
+
+def mind_users(cfg, n: int, gen: torch.Generator, *, train: bool = False) -> dict:
+    """``n`` users drawn on the card with ``mind_batch_stream``'s laws
+    (history length uniform in [4, hist_len], full profile bags, N(0, 1)
+    routing logits; with ``train`` a target and ``n_negatives`` uniform
+    negatives each)."""
+    dev = gen.device
+    ri = lambda hi, shape: torch.randint(0, hi, shape, generator=gen, device=dev,
+                                         dtype=torch.int32)
+    hlen = torch.randint(4, cfg.hist_len + 1, (n,), generator=gen, device=dev)
+    b = {"hist_ids": ri(cfg.n_items, (n, cfg.hist_len)),
+         "hist_mask": torch.arange(cfg.hist_len, device=dev)[None, :] < hlen[:, None],
+         "profile_ids": ri(cfg.n_profile_feats, (n, cfg.profile_bag_len)),
+         "profile_mask": torch.ones((n, cfg.profile_bag_len), dtype=torch.bool, device=dev),
+         "routing_logits_init": torch.randn((n, cfg.n_interests, cfg.hist_len), generator=gen,
+                                            device=dev)}
+    if train:
+        b["target_id"] = ri(cfg.n_items, (n,))
+        b["neg_ids"] = ri(cfg.n_items, (n, cfg.n_negatives))
+    return b
+
+
+def drive_mind(card: str):
+    """11d: MIND at its published config (1 M items x 64, 100 k profile
+    features, history 50, 4 interests, 3 routing rounds, 1279 negatives)
+    on its four cells, random weights drawn on the card."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import mind_batch_stream
+    from repro_torch.models.mind import init_mind, mind_loss, retrieval_scores, serve_user
+    from repro_torch.optim import make_optimizer, warmup_cosine
+    from repro_torch.train import init_train_state, make_train_step
+
+    arch = get_arch("mind")
+    cfg = arch.make_config()
+    gen = torch.Generator(device="cuda").manual_seed(SUBSTRATE_SEED)
+    params, _ = init_mind(gen, cfg)
+    params_cpu = to_cpu_tree(params)
+    out = {}
+
+    def stream_batch(n, seed):
+        b = next(mind_batch_stream(batch=n, n_items=cfg.n_items, hist_len=cfg.hist_len,
+                                   n_profile_feats=cfg.n_profile_feats,
+                                   profile_bag_len=cfg.profile_bag_len,
+                                   n_interests=cfg.n_interests, n_negatives=cfg.n_negatives,
+                                   seed=seed))
+        return {k: torch.from_numpy(v) for k, v in b.items() if k != "step"}
+
+    with torch.no_grad():
+        # serve_p99: 512 users, card against CPU.
+        p99 = stream_batch(MIND_CELLS["serve_p99"], 0)
+        p99_dev = {k: v.cuda() for k, v in p99.items()}
+        got = serve_user(params, p99_dev, cfg)
+        want = serve_user(params_cpu, p99, cfg)
+        err = float(((got.cpu() - want).abs() - 1e-5 * want.abs()).max())
+        check(err <= 1e-6, f"11d serve_p99 interests: card against CPU beyond rtol 1e-5 by {err}")
+        p99_ms = median_ms(lambda: serve_user(params, p99_dev, cfg), reps=5)
+        # serve_bulk: 262144 users drawn on the card.
+        bulk = mind_users(cfg, MIND_CELLS["serve_bulk"], gen)
+        bulk_ms = median_ms(lambda: serve_user(params, bulk, cfg), reps=3)
+        del bulk
+        # retrieval_cand: one user against every item, top 10.
+        one = {k: v[:1] for k, v in p99_dev.items()}
+        one["cand_ids"] = torch.arange(cfg.n_items, dtype=torch.int32, device="cuda")
+        _, ids = retrieval_scores(params, one, cfg, top_k=10)
+        one_cpu = {k: v.cpu() for k, v in one.items()}
+        _, ids_cpu = retrieval_scores(params_cpu, one_cpu, cfg, top_k=10)
+        check(torch.equal(ids.cpu(), ids_cpu), f"11d top-10 ids {ids.tolist()} against the "
+              f"CPU's {ids_cpu.tolist()}")
+        ret_ms = median_ms(lambda: retrieval_scores(params, one, cfg, top_k=10), reps=5)
+    out.update({"serve_p99_ms": p99_ms, "serve_p99_users_per_s": 512e3 / p99_ms,
+                "serve_bulk_ms": bulk_ms,
+                "serve_bulk_users_per_s": MIND_CELLS["serve_bulk"] * 1e3 / bulk_ms,
+                "retrieval_ms": ret_ms, "p99_card_vs_cpu_excess": err})
+
+    # 3 train steps at a batch of 512, card against CPU.
+    opt = make_optimizer(arch.optimizer, warmup_cosine(arch.learning_rate, 20, 10_000))
+    step_fn = make_train_step(lambda p, b: mind_loss(p, b, cfg), opt)
+    states = {"card": init_train_state(params, opt), "host": init_train_state(params_cpu, opt)}
+    worst = 0.0
+    for i in range(3):
+        b = stream_batch(MIND_CELLS["cpu_train_batch"], 10 + i)
+        states["card"], mc = step_fn(states["card"], {k: v.cuda() for k, v in b.items()})
+        states["host"], mh = step_fn(states["host"], b)
+        for k in ("loss", "grad_norm"):
+            a, h = float(mc[k]), float(mh[k])
+            worst = max(worst, abs(a - h) / abs(h))
+            check(abs(a - h) <= 1e-4 * abs(h), f"11d MIND step {i + 1} {k}: card {a} against "
+                  f"CPU {h}")
+    del states["host"], params_cpu
+    # train_batch cut to 16384 users, drawn on the card.
+    big = mind_users(cfg, MIND_CELLS["train_batch"], gen, train=True)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    state = states["card"]
+    state, _ = step_fn(state, big)                                 # warm-up
+    ms = []
+    for _ in range(3):
+        holder = {}
+        ms.append(cuda_ms(lambda: holder.update(r=step_fn(state, big))))
+        state, m = holder["r"]
+    check(math.isfinite(float(m["loss"])), "11d MIND train loss is not finite")
+    peak = torch.cuda.max_memory_allocated() - base
+    out.update({"train_ms": statistics.median(ms), "train_peak_gib": peak / 2 ** 30,
+                "train_card_vs_cpu_rel": worst})
+    print(f"phase 11d MIND (published: 1M items x 64, 100k profile features, history 50, "
+          f"4 interests, 3 rounds, 1279 negatives) on {card}: serve_p99 {p99_ms:.3f} ms "
+          f"({out['serve_p99_users_per_s']:.0f} users/s, interests within rtol 1e-5 of the "
+          f"CPU); serve_bulk {bulk_ms:.1f} ms ({out['serve_bulk_users_per_s']:.0f} users/s); "
+          f"retrieval_cand {ret_ms:.3f} ms (top-10 ids equal the CPU's); train_batch cut from "
+          f"65536 to {MIND_CELLS['train_batch']}: {out['train_ms']:.1f} ms a step, peak "
+          f"{peak / 2 ** 30:.2f} GiB; 3 steps at 512 within {worst:.2e} of the CPU")
+    return out
+
+
+SUBSTRATE_CLIS = {
+    "serve qwen2-1.5b": (["repro_torch.launch.serve", "--arch", "qwen2-1.5b", "--requests", "4",
+                          "--gen", "16"], ["[done] 4 requests"]),
+    "serve mind": (["repro_torch.launch.serve", "--arch", "mind", "--requests", "8"],
+                   ["[retrieval] top-10"]),
+    "train mind": (["repro_torch.launch.train", "--arch", "mind", "--steps", "6",
+                    "--log-every", "3"], ["[done] 6 steps"]),
+    "train deepseek-v2-236b 6": (["repro_torch.launch.train", "--arch", "deepseek-v2-236b",
+                                  "--steps", "6", "--ckpt-every", "3", "--log-every", "3"],
+                                 ["[done] 6 steps"]),
+}
+
+
+def start_cli(argv, ck: Path):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    if "--ckpt-every" in argv:
+        argv = argv + ["--ckpt-dir", str(ck)]
+    return subprocess.Popen([sys.executable, "-m", *argv], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env, cwd=str(ROOT))
+
+
+def finish_cli(card: str, label: str, proc, t0: float, want, times: dict) -> str:
+    try:
+        so, se = proc.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        so, se = proc.communicate()
+    check(proc.returncode == 0 and all(w in so for w in want),
+          f"11e {label}: rc {proc.returncode}\n{so[-2000:]}\n{se[-2000:]}")
+    times[label] = time.perf_counter() - t0
+    print(f"phase 11e {label} on {card}: rc 0, collected {times[label]:.1f} s after its "
+          f"start; " + " | ".join(so.strip().splitlines()[-3:]))
+    return so
+
+
+def drive_substrate_clis(card: str, scratch: Path, alongside):
+    """11e: the serve and train CLIs on the card at smoke configs, as the
+    reference's run: four at once (while ``alongside()`` runs here), then
+    the deepseek trainer resumed from its step-6 checkpoint to 9.  ->
+    (times, what ``alongside`` returned)."""
+    ck = scratch / "substrate_ckpt"
+    times = {}
+    t0 = time.perf_counter()
+    procs = {label: start_cli(argv, ck) for label, (argv, _) in SUBSTRATE_CLIS.items()}
+    try:
+        other = alongside()
+    finally:
+        for label, proc in procs.items():
+            so = finish_cli(card, label, proc, t0, SUBSTRATE_CLIS[label][1], times)
+            check("[resume]" not in so, f"11e {label} resumed from nothing:\n{so}")
+    t1 = time.perf_counter()
+    argv = SUBSTRATE_CLIS["train deepseek-v2-236b 6"][0]
+    argv = argv[:argv.index("--steps") + 1] + ["9"] + argv[argv.index("--steps") + 2:]
+    finish_cli(card, "train deepseek-v2-236b 9 (resumed)", start_cli(argv, ck), t1,
+               ["[resume] restored step 6", "[done] 9 steps"], times)
+    shutil.rmtree(ck, ignore_errors=True)
+    times["all_s"] = time.perf_counter() - t0
+    return times, other
+
+
+def compressed_rank(steps: int, *, device: str):
+    """11f on one rank of four: the int8 compressed step on a (2, 2, 1)
+    (pod, data, model) mesh beside the plain step, the reference test's
+    config and batch; -> the totals of each step and a digest of the
+    parameters after each."""
+    import hashlib
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.transformer import LMConfig, init_lm, loss_fn
+    from repro_torch.optim import make_optimizer, warmup_cosine
+    from repro_torch.sharding import P
+    from repro_torch.train import (init_train_state, make_compressed_train_step,
+                                   make_train_step, pod_rows)
+    from repro_torch.tree import flatten_with_path, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh((2, 2, 1), ("pod", "data", "model"), device=device)
+    cfg = LMConfig(name="t", param_dtype=torch.float32, compute_dtype=torch.float32,
+                   **COMPRESS_CFG)
+    params, _ = init_lm(torch.Generator(device=device).manual_seed(SUBSTRATE_SEED), cfg)
+    twin = tree_map(lambda p: p.detach().clone().requires_grad_(), params)
+    opt = make_optimizer("adamw", warmup_cosine(1e-3, 10, 100))
+    step_c = make_compressed_train_step(lambda p, b: loss_fn(p, b, cfg), opt, mesh,
+                                        lambda b: {"tokens": P("pod"), "labels": P("pod")})
+    step_p = make_train_step(lambda p, b: loss_fn(p, b, cfg), opt)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (8, 16))).to(device)
+    batch = {"tokens": toks, "labels": toks}
+    s1 = init_train_state(params, opt, n_pods=2)
+    s1.err = pod_rows(s1.err, mesh)
+    s2 = init_train_state(twin, opt)
+    totals, digests = [], []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        s1, m1 = step_c(s1, batch)
+        s2, m2 = step_p(s2, batch)
+        totals.append((float(m1["total"]), float(m2["total"])))
+        h = hashlib.sha256()
+        for _, v in flatten_with_path(s1.params):
+            h.update(v.detach().cpu().numpy().tobytes())
+        digests.append(h.hexdigest())
+    return {"totals": totals, "digests": digests, "s": time.perf_counter() - t0,
+            "device": str(torch.device(device))}
+
+
+def drive_compressed(card: str):
+    """11f: the compressed step on four gloo ranks on the one card (phase
+    10b's spawner), 4 steps against the plain step: |total_c - total_plain|
+    < 0.05 on every rank (the reference's own bound), parameters bit-equal
+    across ranks after each step."""
+    from repro_torch.launch.apsp_run import run_ranks
+
+    t0 = time.perf_counter()
+    per_rank = run_ranks(compressed_rank, 4, (4,), device="cuda", backend="gloo", timeout=300)
+    worst = 0.0
+    for rank, r in enumerate(per_rank):
+        for i, (c, p) in enumerate(r["totals"]):
+            worst = max(worst, abs(c - p))
+            check(math.isfinite(c) and abs(c - p) < 0.05,
+                  f"11f rank {rank} step {i + 1}: compressed total {c} against plain {p}")
+        check(r["digests"] == per_rank[0]["digests"], f"11f rank {rank}: parameters differ "
+              f"from rank 0's")
+    out = {"worst_total_gap": worst, "s": time.perf_counter() - t0,
+           "steps_s_by_rank": [r["s"] for r in per_rank],
+           "totals_rank0": per_rank[0]["totals"]}
+    print(f"phase 11f compressed step, four gloo ranks on one card on a (2, 2, 1) mesh, 4 steps: "
+          f"|total_c - total_plain| <= {worst:.2e} on every rank (limit 0.05), parameters "
+          f"bit-equal across ranks after every step; {out['s']:.1f} s with process start")
+    return out
+
+
+def drive_substrate(card: str, scratch: Path):
+    """Phase 11: the LM and MIND substrate on the card.  What the earlier
+    phases hold is freed first; every cut is printed.  No kernel of this
+    repo lies on the path (the reference's attention, MoE dispatch and MIND
+    routing are XLA code; the port's are PyTorch's): the launch counters
+    must not move."""
+    import gc
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    print(f"phase 11 on {card}: torch.cuda.memory_allocated() at the start "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
+    before = launch_counts()
+    times = {}
+    for key, fn in (("11a/b qwen2-1.5b", lambda: drive_qwen(card)),
+                    ("11c deepseek-v2-236b", lambda: drive_deepseek(card)),
+                    ("11d mind", lambda: drive_mind(card))):
+        t0 = time.perf_counter()
+        times[key] = fn()
+        times[key]["s"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    check(launch_counts() == before, f"phase 11 launched kernels of this repo: {before} -> "
+          f"{launch_counts()}")
+    # 11e's four CLIs run while 11f's four ranks do (their times are no metric).
+    times["11e CLIs"], times["11f compressed"] = drive_substrate_clis(
+        card, scratch, lambda: drive_compressed(card))
+    times["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 11 on {card}: {times['phase_s']:.1f} s; {json.dumps(times)}")
+    return times
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2175,6 +2829,7 @@ def run(scratch: Path) -> int:
               f"= {hot['instructions'] / hot['FADD']:.3f} instructions a candidate{extra}; "
               f"{json.dumps(hot['histogram'])}")
 
+    elapsed("phase 2")
     # 2. Kernel against the plain version on the card.
     print("tolerance: exact (torch.equal, NaN in the same places)")
     err = 0.0
@@ -2223,6 +2878,7 @@ def run(scratch: Path) -> int:
         compare(f"G=3 N={2 * b} B={b} bottleneck", torch.from_numpy(hs).to(dev), 0, b, "bottleneck")
         compare(f"N={2 * b} B={b} bf16 tropical", d.to(torch.bfloat16), 0, b)
 
+    elapsed("phase 2b")
     # 2b. The slice-2 kernels against their plain versions on the card.  bf16
     # operands reach a kernel upcast, as ops sends them, and its value is
     # rounded once.
@@ -2335,6 +2991,7 @@ def run(scratch: Path) -> int:
             compare_new("minplus_pred", tag + " accumulate, no fallback", x, y, px, py, a,
                         None, k_offset=ko, j_offset=jo, semiring=name)
 
+    elapsed("phase 3")
     # 3. The main path: repro_torch.solve with all defaults.
     def plain_solve(h_dev, b=256):
         n = h_dev.shape[0]
@@ -2381,6 +3038,7 @@ def run(scratch: Path) -> int:
               f"{float(torch.isfinite(dist).float().mean()):.4f}")
         results[n] = (g.h, rounds, dist, src, dj)
 
+    elapsed("phase 3b")
     # 3b. The slice-2 paths, each driven with every count set to 0 just
     # before it and read just after.
     def counts():
@@ -2483,7 +3141,7 @@ def run(scratch: Path) -> int:
         label = "split" + (" with_pred" if options.get("with_pred") else "") + " N=8192"
         res = drive(label, h_np, expect, **options)
         check(same(res.dist, dist), f"{label}: dist differs from the fused solve's")
-        check(res.pred is None or validate_tree(h_np, res.dist, res.pred),
+        check(res.pred is None or tree_holds(torch.from_numpy(h_np).to(dev), res.dist, res.pred),
               f"{label}: invalid tree")
         if res.pred is not None:
             want_d, want_p = plain_pred_solve(torch.from_numpy(h_np).to(dev), 256, split=True)
@@ -2504,6 +3162,7 @@ def run(scratch: Path) -> int:
         print(f"N=2048 {'split' if split else 'fused'} with_pred: dist and pred equal to the "
               f"plain pred solve on the card")
 
+    elapsed("phase 3c")
     # 3c. Tiles above 256 nodes (the grid closure) on every path: at N = 8192
     # dist equals the B = 256 solve's (integer weights: every sum is exact),
     # preds form a valid tree; at N = 2048, B = 512 the pred solves equal the
@@ -2521,10 +3180,9 @@ def run(scratch: Path) -> int:
             label = f"{path} B={b}"
             res = drive(label, h_np, expect, b=b, **options)
             check(same(res.dist, dist), f"{label}: dist differs from the B=256 solve's")
-            check(res.pred is None or validate_tree(h_np, res.dist, res.pred),
-                  f"{label}: invalid tree")
+            check(res.pred is None or tree_holds(h8, res.dist, res.pred), f"{label}: invalid tree")
             print(f"{label}: dist equal to the B=256 solve's"
-                  f"{'; validate_tree holds' if res.pred is not None else ''}")
+                  f"{'; the tree invariant holds (on the card)' if res.pred is not None else ''}")
             del res
         # The grid closures' device time, from a traced solve of each path
         # that runs one (a closure a round).
@@ -2574,6 +3232,7 @@ def run(scratch: Path) -> int:
     print(f"N=16384: B=512 dist equal to the B=256 solve's; solve ms (median of 3) and the "
           f"grid closure on {card}: {json.dumps(large)}")
 
+    elapsed("phase 4")
     # 4. The times (fw_round a round, every solve path's median) and the
     # device breakdown of one main, pred and split solve (device rows only:
     # kernels, memcpy, memset), each grid counted against the path's rounds.
@@ -2607,6 +3266,7 @@ def run(scratch: Path) -> int:
         check(not gathers, f"{path}: the trace still holds gather rows {gathers}")
     print("pred and split pred traces: no gather rows")
 
+    elapsed("phase 6")
     # 6 (run here, before the kernels line). The dynamic engine at N = 8192.
     lane_rate = sms * FP32_LANES_PER_SM * clock_mhz * 1e6
     dynamic_launches, dynamic_ms, row_close_err = drive_dynamic(dev, card)
@@ -2672,6 +3332,7 @@ def run(scratch: Path) -> int:
         "card": card,
     }
 
+    elapsed("phase 7")
     # 7 (run here, before the kernels line). The paper's evaluation: its
     # corpus through solve_batch, each method at full width, the kernels on
     # the new shapes.
@@ -2683,6 +3344,7 @@ def run(scratch: Path) -> int:
     for kind, e in paper_errs.items():
         errs[kind] = max(errs[kind], e)
 
+    elapsed("phase 8")
     # 8 (run here, before the kernels line). The serving tier: serve_apsp,
     # the pool on N = 8192 slots with and without chaos, the batched drain,
     # engine checkpoints.
@@ -2691,6 +3353,7 @@ def run(scratch: Path) -> int:
     path_launches.update(serving_launches)
     for kind, e in serving_errs.items():
         errs[kind] = max(errs[kind], e)
+    elapsed("phase 9")
     # 9 (run here, before the kernels line). The GNN training path:
     # spd_features on the minplus kernel, the three GNN configs, launch.train.
     training_launches, training_times, training_extra = drive_training(
@@ -2701,6 +3364,7 @@ def run(scratch: Path) -> int:
     row_close_entry["launches_by_path"] = {
         lbl: {m: c[m] for m in ROW_CLOSE_MODES if c.get(m)}
         for lbl, c in path_launches.items() if any(c.get(m) for m in ROW_CLOSE_MODES)}
+    elapsed("phase 10")
     # 10 (run here, before the kernels line). NequIP at its published config
     # on the molecule cell; the distributed solvers on the N = 8192 graph,
     # minplus and fw_block on every rank.
@@ -2712,7 +3376,13 @@ def run(scratch: Path) -> int:
         serving_extra.setdefault(kind, {}).update(entries)
     print(f"phase 10 on {card}: {nequip_times['phase_s'] + dist_times['phase_s']:.1f} s; "
           f"{json.dumps({'10a': nequip_times, '10b': dist_times})}")
+    elapsed("phase 11")
+    # 11 (run here, before the kernels line). The LM and MIND substrate:
+    # qwen2-1.5b serving and training, deepseek-v2-236b cut to 2 layers,
+    # MIND's four cells, the CLIs, the compressed step on four gloo ranks.
+    drive_substrate(card, scratch)
 
+    elapsed("phase 5")
     # 5. The plain version's time, the bound and the kernels line.
     n, b = 8192, 256
     round_ms, solves = measured["round_ms"], measured["solve_ms"]
@@ -2898,6 +3568,7 @@ def run(scratch: Path) -> int:
     print(f"solve ms at N=8192 (median of 3): {json.dumps(solves)}")
     print(f"dynamic update ms at N=8192 by path (medians): "
           f"{json.dumps({k: v['median_ms'] for k, v in dynamic_ms.items() if 'median_ms' in v})}")
+    elapsed("the kernels line")
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

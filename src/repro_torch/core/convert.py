@@ -14,6 +14,14 @@ JAX params tree (as numpy arrays) into a ``repro_torch.models.GNN``
 parameters cross by the same walk (:func:`nequip_params_from_jax`,
 :func:`nequip_params_to_jax`): ``params["layers"][0]["radial"]["w1"]`` is
 ``"layers.0.radial.w1"`` of a ``repro_torch.models.nequip.NequIP``.
+
+The LM's and MIND's parameter trees cross as trees, not ``state_dict``s:
+:func:`lm_params_from_jax` turns the JAX tree (dicts and lists of host
+arrays; the stacked layer leaves keep their leading L dimension) into the
+port's tree of CPU tensors of the same layout, and :func:`lm_params_to_jax`
+turns a port tree back into numpy arrays, a bf16 leaf as its uint16 bit
+view (``to_numpy``).  :func:`mind_params_from_jax` /
+:func:`mind_params_to_jax` are the same walk.
 """
 
 from __future__ import annotations
@@ -23,8 +31,11 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.tree import tree_map
+
 __all__ = ["to_torch", "to_numpy", "gnn_params_from_jax", "gnn_params_to_jax",
-           "nequip_params_from_jax", "nequip_params_to_jax"]
+           "nequip_params_from_jax", "nequip_params_to_jax", "lm_params_from_jax",
+           "lm_params_to_jax", "mind_params_from_jax", "mind_params_to_jax"]
 
 
 def to_torch(a: np.ndarray, device="cpu", dtype: Optional[str] = None) -> torch.Tensor:
@@ -86,3 +97,20 @@ def gnn_params_to_jax(state_dict: Dict[str, torch.Tensor]):
 # NequIP's tree (dicts and a list of layers) walks as the GNN's does.
 nequip_params_from_jax = gnn_params_from_jax
 nequip_params_to_jax = gnn_params_to_jax
+
+
+def lm_params_from_jax(params_np):
+    """JAX LM params tree (dicts and lists of host arrays, bf16 as an
+    ``ml_dtypes`` array) -> the port's tree of CPU tensors, bit for bit."""
+    return tree_map(to_torch, params_np)
+
+
+def lm_params_to_jax(params):
+    """A port LM params tree -> the JAX tree of numpy arrays (bf16 as its
+    uint16 bit view), bit for bit."""
+    return tree_map(lambda t: to_numpy(t)[0], params)
+
+
+# MIND's tree (a flat dict) walks as the LM's does.
+mind_params_from_jax = lm_params_from_jax
+mind_params_to_jax = lm_params_to_jax

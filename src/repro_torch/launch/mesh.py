@@ -8,14 +8,17 @@ A :class:`Mesh` lays the ranks of an initialised process group out
 row-major over named axes (as ``jax.make_mesh`` lays out its devices) on
 a ``torch.distributed.device_mesh.DeviceMesh``, whose per-dimension
 groups carry the collectives along one axis; the multi-pod row axes
-``("pod", "data")`` get one flattened group of their own.  Every rank
-creates the groups in the same order, as ``new_group`` requires.  Each
-rank holds its local blocks on ``Mesh.device``.
+``("pod", "data")`` get one flattened group of their own, and so do a
+pod's own ranks (every axis but ``pod``, the compressed train step's
+in-pod average).  Every rank creates the groups in the same order, as
+``new_group`` requires.  Each rank holds its local blocks on
+``Mesh.device``.
 
-Collectives are broadcasts from an owning rank (:meth:`Mesh.broadcast`),
-which gloo has for CUDA tensors as NCCL does: several ranks on one card
-(NCCL refuses two ranks on one GPU) run under gloo, which stages each
-broadcast through the host.
+The solvers' collectives are broadcasts from an owning rank
+(:meth:`Mesh.broadcast`); the compressed train step all-reduces.  gloo
+has both for CUDA tensors as NCCL does: several ranks on one card (NCCL
+refuses two ranks on one GPU) run under gloo, which stages each
+collective through the host.
 
 Functions, not module constants: importing this module initialises no
 process group.
@@ -140,6 +143,11 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], *, device="cuda") -> Me
         rows = np.moveaxis(devices, [axes.index("pod"), axes.index("data")], [0, 1])
         rows = rows.reshape(shape[axes.index("pod")] * shape[axes.index("data")], -1).T
         groups[("pod", "data")], _ = dist.new_subgroups_by_enumeration(rows.tolist())
+    inner = tuple(a for a in axes if a != "pod")
+    if "pod" in axes and len(inner) > 1:
+        # A pod's own ranks (every axis but pod): one group a pod.
+        pods = np.moveaxis(devices, axes.index("pod"), 0).reshape(shape[axes.index("pod")], -1)
+        groups[inner], _ = dist.new_subgroups_by_enumeration(pods.tolist())
     return Mesh(devices, axes, device, groups)
 
 

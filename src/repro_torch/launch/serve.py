@@ -1,6 +1,13 @@
 """Serving driver of the PyTorch port, ported from ``repro.launch.serve``:
-batched APSP over a stream of graph requests, and incremental APSP on the
-supervised engine pool.
+a batched request loop over prefill + greedy decode (LM), interest
+extraction + retrieval (MIND), batched APSP over a stream of graph
+requests, and incremental APSP on the supervised engine pool.
+
+The LM mode (``--arch`` one of the five LMs) serves the arch's smoke
+config: batches of up to 4 prompts of 16 tokens through ``prefill``, then
+``--gen`` greedy ``decode_step``s each against the KV cache.  The MIND
+mode (``--arch mind``) computes ``--requests`` users' interests and one
+user's top 10 of the whole item table.
 
 The batched mode packs incoming ragged graphs into (G, N_max, N_max)
 inf-padded slots (padding is inert under (min, +)) and solves each cycle
@@ -15,11 +22,11 @@ queries (live under a deadline, or bounded-staleness snapshot answers).
 poisoned answer, or an unrecovered slot.
 
 Everything runs on ``--device`` (``cuda`` unless told otherwise; ``cpu``
-runs the kernels' plain versions).  Only ``--arch apsp`` is ported: the
-JAX driver's LM and MIND modes belong to the substrate slice (ROADMAP.md
-queue 1).
+runs the kernels' plain versions).
 
 Usage:
+    python -m repro_torch.launch.serve --arch qwen2-1.5b --requests 4 --gen 16
+    python -m repro_torch.launch.serve --arch mind --requests 8
     python -m repro_torch.launch.serve --arch apsp --requests 64 --batch 16 \\
         --n-max 1024 --method blocked_fw
     python -m repro_torch.launch.serve --arch apsp --requests 64 --n-max 8192 \\
@@ -39,6 +46,63 @@ import numpy as np
 import torch
 
 from repro_torch.core.semiring import default_device
+
+
+def serve_lm(arch_id: str, n_requests: int, gen_len: int, seed: int = 0, *,
+             device="cuda") -> int:
+    """Prefill + greedy decode over batches of random prompts, the arch's
+    smoke config with weights drawn from ``seed`` on ``device``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import decode_step, init_lm, prefill
+
+    cfg = get_arch(arch_id).smoke_config()
+    params, _ = init_lm(torch.Generator(device=device).manual_seed(seed), cfg)
+    rng = np.random.default_rng(seed)
+    batch = max(2, min(4, n_requests))
+    prompt_len, max_len = 16, 16 + gen_len
+    done = 0
+    t0 = time.time()
+    with torch.no_grad():
+        while done < n_requests:
+            toks = torch.from_numpy(rng.integers(0, cfg.vocab, (batch, prompt_len))).to(device)
+            logits, cache = prefill(params, toks, cfg, max_len)
+            out = [torch.argmax(logits, -1)[:, None]]
+            for _ in range(gen_len - 1):
+                lg, cache = decode_step(params, cache, out[-1], cfg)
+                out.append(torch.argmax(lg, -1)[:, None])
+            gen = torch.cat(out, dim=1)
+            assert gen.shape == (batch, gen_len)
+            assert not bool(torch.isnan(lg).any())
+            done += batch
+            print(f"[serve] batch of {batch}: prompt {prompt_len} -> +{gen_len} tokens "
+                  f"(sample: {gen[0, :8].tolist()})")
+    dt = time.time() - t0
+    print(f"[done] {done} requests, {done * gen_len / dt:.1f} tok/s (smoke config on {device})")
+    return 0
+
+
+def serve_mind(n_requests: int, seed: int = 0, *, device="cuda") -> int:
+    """``n_requests`` users' interests, then one user's top 10 of every
+    item, MIND's smoke config."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import mind_batch_stream
+    from repro_torch.models.mind import init_mind, retrieval_scores, serve_user
+
+    cfg = get_arch("mind").smoke_config()
+    params, _ = init_mind(torch.Generator(device=device).manual_seed(seed), cfg)
+    stream = mind_batch_stream(
+        batch=n_requests, n_items=cfg.n_items, hist_len=cfg.hist_len,
+        n_profile_feats=cfg.n_profile_feats, profile_bag_len=cfg.profile_bag_len,
+        n_interests=cfg.n_interests, n_negatives=cfg.n_negatives, seed=seed)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in next(stream).items() if k != "step"}
+    with torch.no_grad():
+        interests = serve_user(params, batch, cfg)
+        print(f"[serve] {n_requests} users -> interests {tuple(interests.shape)}")
+        one = {k: v[:1] for k, v in batch.items()}
+        one["cand_ids"] = torch.arange(cfg.n_items, dtype=torch.int32, device=device)
+        _, ids = retrieval_scores(params, one, cfg, top_k=10)
+    print(f"[retrieval] top-10 of {cfg.n_items}: ids={ids.tolist()}")
+    return 0
 
 #: semirings the synthetic tropical request stream can be recast into.
 RECASTABLE = ("tropical", "bottleneck", "reliability", "boolean")
@@ -368,12 +432,13 @@ def serve_apsp_dynamic(
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True,
-                    help="only 'apsp' is ported (the LM and MIND modes belong to "
-                         "the substrate slice)")
+                    help="'apsp', 'mind' or one of the LM archs (repro_torch.configs)")
     ap.add_argument("--device", default="cuda",
-                    help="where the solves and engines run: 'cuda' (the kernels) "
-                         "or 'cpu' (their plain versions)")
+                    help="where the models, solves and engines run: 'cuda' (the "
+                         "kernels) or 'cpu' (their plain versions)")
     ap.add_argument("--requests", type=int, default=4)
+    ap.add_argument("--gen", type=int, default=16,
+                    help="LM mode: tokens generated a request")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--batch", type=int, default=16,
                     help="graph slots per serving cycle")
@@ -429,12 +494,10 @@ def main(argv=None) -> int:
                     help="dynamic mode: checkpoint a durable slot every N "
                          "successful drains (0 = only the build-time checkpoint)")
     args = ap.parse_args(argv)
+    if args.arch == "mind":
+        return serve_mind(args.requests, args.seed, device=args.device)
     if args.arch != "apsp":
-        raise ValueError(
-            f"--arch {args.arch!r} is not ported to repro_torch: only 'apsp' is.  "
-            "The JAX driver's LM and MIND modes belong to the substrate slice "
-            "(ROADMAP.md queue 1); run them with python -m repro.launch.serve."
-        )
+        return serve_lm(args.arch, args.requests, args.gen, args.seed, device=args.device)
     if args.mutate_rate > 0.0:
         return serve_apsp_dynamic(
             args.requests, n_max=args.n_max, graphs=args.graphs,

@@ -13,12 +13,13 @@ Fault-tolerance features, as in the reference:
   * deterministic data: stream position == step count, so restarts replay
     nothing and skip nothing
 
-It runs the reduced smoke config of the ``gnn`` family (gcn-cora, gin-tu,
-pna) and of ``nequip``, which trains on energy alone (the mean squared
-error of the batch's molecule energies, as the reference's loss), fed by
-``data.molecule_batch_stream``.  The other families raise, naming the
-slice they wait for.  Float32 matrix products run in full float32 (TF32
-off), set explicitly.
+It runs the reduced smoke config of every trainable family: ``lm`` (the
+five LMs, next-token loss on ``data.lm_batch_stream``), ``recsys`` (MIND,
+the sampled softmax on ``data.mind_batch_stream``), ``gnn`` (gcn-cora,
+gin-tu, pna) and ``nequip``, which trains on energy alone (the mean
+squared error of the batch's molecule energies, as the reference's loss),
+fed by ``data.molecule_batch_stream``.  ``apsp`` has no trainer.  Float32
+matrix products run in full float32 (TF32 off), set explicitly.
 
 Usage:
     python -m repro_torch.launch.train --arch gcn-cora --steps 200 \\
@@ -37,9 +38,17 @@ import torch
 from repro_torch.checkpoint import CheckpointManager, load_checkpoint, restore_onto_mesh
 from repro_torch.checkpoint.checkpoint import latest_step
 from repro_torch.configs import get_arch
-from repro_torch.data import molecule_batch_stream, synthetic_graph
+from repro_torch.data import (
+    lm_batch_stream,
+    mind_batch_stream,
+    molecule_batch_stream,
+    synthetic_graph,
+)
 from repro_torch.models.gnn import init_gnn, loss_gnn
+from repro_torch.models.mind import init_mind, mind_loss
 from repro_torch.models.nequip import init_nequip, nequip_energy_batch
+from repro_torch.models.transformer import init_lm
+from repro_torch.models.transformer import loss_fn as lm_loss
 from repro_torch.optim import make_optimizer, warmup_cosine
 from repro_torch.train import init_train_state, make_train_step
 
@@ -53,7 +62,26 @@ def build_smoke_trainer(arch_id: str, seed: int = 0, *, device="cuda"):
     cfg = arch.smoke_config()
     opt = make_optimizer(arch.optimizer, warmup_cosine(arch.learning_rate, 20, 10_000))
     gen = torch.Generator().manual_seed(seed)
-    if arch.family == "gnn":
+    if arch.family == "lm":
+        params, _ = init_lm(torch.Generator(device=device).manual_seed(seed), cfg)
+        step_fn = make_train_step(lambda p, b: lm_loss(p, b, cfg), opt)
+        stream = lm_batch_stream(batch=8, seq_len=64, vocab=cfg.vocab, seed=seed)
+
+        def batches():
+            for b in stream:
+                yield {k: torch.from_numpy(b[k]).to(device) for k in ("tokens", "labels")}
+    elif arch.family == "recsys":
+        params, _ = init_mind(torch.Generator(device=device).manual_seed(seed), cfg)
+        step_fn = make_train_step(lambda p, b: mind_loss(p, b, cfg), opt)
+        stream = mind_batch_stream(
+            batch=32, n_items=cfg.n_items, hist_len=cfg.hist_len,
+            n_profile_feats=cfg.n_profile_feats, profile_bag_len=cfg.profile_bag_len,
+            n_interests=cfg.n_interests, n_negatives=cfg.n_negatives, seed=seed)
+
+        def batches():
+            for b in stream:
+                yield {k: torch.from_numpy(v).to(device) for k, v in b.items() if k != "step"}
+    elif arch.family == "gnn":
         params = init_gnn(gen, cfg, device=device)
         step_fn = make_train_step(lambda p, g: loss_gnn(p, g, cfg), opt)
         g = synthetic_graph(n_nodes=64, n_edges=256, d_feat=cfg.d_feat,

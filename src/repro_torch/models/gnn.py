@@ -33,9 +33,9 @@ variance exactly 0 in PNA's ``std``).
 
 Divergences by design: ``init_gnn`` draws from a ``torch.Generator``
 (other numbers than ``jax.random`` for the same seed) and returns the
-parameter tree only (no sharding specs; ``constrain`` waits for the
-LM substrate slice).  On the card ``index_add`` sums in no fixed order, so
-results there agree with the CPU within a tolerance, not bit for bit.
+parameter tree only (no sharding specs: the GNN cells run on one card).
+On the card ``index_add`` sums in no fixed order, so results there agree
+with the CPU within a tolerance, not bit for bit.
 """
 
 from __future__ import annotations

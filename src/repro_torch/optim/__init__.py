@@ -1,8 +1,7 @@
-"""Optimizers, schedules and clipping of the PyTorch port, ported from
-``repro.optim``.  Gradient compression (``optim/compression.py``) waits for
-the LM substrate slice, its only user being the LM trainer (ROADMAP.md
-queue 1)."""
+"""Optimizers, schedules, clipping and the int8 gradient compression of the
+PyTorch port, ported from ``repro.optim``."""
 
+from .compression import compressed_psum, dequantize_int8, init_error_state, quantize_int8
 from .optimizers import (
     Optimizer,
     adafactor,
@@ -15,5 +14,6 @@ from .optimizers import (
 
 __all__ = [
     "Optimizer", "adafactor", "adamw", "clip_by_global_norm", "make_optimizer",
-    "sgd", "warmup_cosine",
+    "sgd", "warmup_cosine", "quantize_int8", "dequantize_int8", "compressed_psum",
+    "init_error_state",
 ]

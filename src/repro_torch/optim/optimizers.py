@@ -14,8 +14,10 @@ so that a train checkpoint has the reference's keys.
 
 ``update`` takes tensors (``step`` a 0-d integer tensor or an int) and
 returns new trees; the train step adds the updates to the parameters in
-place.  Sharding specs (the reference's ``state_specs``) wait for the
-LM substrate slice, with the compressed train step that uses them.
+place.  ``state_specs`` maps a tree of the port's ``PartitionSpec``s of
+the parameters to the state's, leaf for leaf, as the reference's does
+(each moment inherits its parameter's layout; Adafactor's row and column
+statistics drop the last or second-to-last entry).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.sharding import PartitionSpec as P
 from repro_torch.tree import leaves, tree_map
 
 __all__ = [
@@ -43,6 +46,7 @@ __all__ = [
 class Optimizer:
     init: Callable           # params -> opt_state
     update: Callable         # (grads, opt_state, params, step) -> (updates, opt_state)
+    state_specs: Callable    # param_specs -> state_specs
 
 
 def _f32(step, like=None) -> torch.Tensor:
@@ -111,7 +115,10 @@ def adamw(
         out = tree_map(upd, grads, state["mu"], state["nu"], params)
         return _pick(out, 0), {"mu": _pick(out, 1), "nu": _pick(out, 2)}
 
-    return Optimizer(init, update)
+    def state_specs(param_specs):
+        return {"mu": param_specs, "nu": param_specs}
+
+    return Optimizer(init, update, state_specs)
 
 
 def _pick(out, i: int):
@@ -177,7 +184,16 @@ def adafactor(
         out = tree_map(upd, grads, state, params)
         return _pick(out, 0), _pick(out, 1)
 
-    return Optimizer(init, update)
+    def state_specs(param_specs):
+        def mk(spec):
+            parts = tuple(spec)
+            if len(parts) >= 2:
+                return {"vr": P(*parts[:-1]), "vc": P(*(parts[:-2] + parts[-1:]))}
+            return {"v": spec}
+
+        return tree_map(mk, param_specs)
+
+    return Optimizer(init, update, state_specs)
 
 
 # ---------------------------------------------------------------------------
@@ -201,7 +217,10 @@ def sgd(lr: Callable, *, momentum: float = 0.9, nesterov: bool = False) -> Optim
         out = tree_map(upd, grads, state["m"], params)
         return _pick(out, 0), {"m": _pick(out, 1)}
 
-    return Optimizer(init, update)
+    def state_specs(param_specs):
+        return {"m": param_specs}
+
+    return Optimizer(init, update, state_specs)
 
 
 def make_optimizer(kind: str, lr_fn, **kw) -> Optimizer:

@@ -1,5 +1,13 @@
-"""The train step of the PyTorch port, ported from ``repro.train``."""
+"""The train steps of the PyTorch port, ported from ``repro.train``."""
 
-from .steps import TrainState, init_train_state, make_train_step
+from .steps import (
+    TrainState,
+    init_train_state,
+    make_compressed_train_step,
+    make_train_step,
+    pod_rows,
+    train_state_specs,
+)
 
-__all__ = ["TrainState", "init_train_state", "make_train_step"]
+__all__ = ["TrainState", "init_train_state", "train_state_specs", "make_train_step",
+           "make_compressed_train_step", "pod_rows"]

@@ -75,6 +75,14 @@ def test_port_files_exist():
     "repro_torch.launch.mesh",
     "repro_torch.launch.apsp_run",
     "repro_torch.sharding",
+    "repro_torch.models.transformer",
+    "repro_torch.models.kvcache",
+    "repro_torch.models.moe",
+    "repro_torch.models.mla",
+    "repro_torch.models.mind",
+    "repro_torch.optim.compression",
+    "repro_torch.configs.lm_archs",
+    "repro_torch.configs.recsys_archs",
 ])
 def test_new_modules_are_scanned_and_import(module):
     path = ROOT / "src" / (module.replace(".", "/") + ".py")
@@ -264,6 +272,34 @@ def test_port_training_path_without_jax(arch):
         "    state, m = step(state, next(batches))\n"
         "assert int(state.step) == 2 and np.isfinite(float(m['loss']))\n"
         f"assert train.main(['--arch', {arch!r}, '--steps', '2', '--device', 'cpu']) == 0\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", code], env=env, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stderr
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "qwen2-1.5b", "mind"])
+def test_port_lm_and_mind_paths_without_jax(arch):
+    """The serving loop and two smoke train steps of an LM or MIND, in a
+    process where ``jax`` and ``repro`` cannot load."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import numpy as np\n"
+        "from repro_torch.launch import serve, train\n"
+        f"arch = {arch!r}\n"
+        "rc = (serve.serve_mind(4, device='cpu') if arch == 'mind'\n"
+        "      else serve.serve_lm(arch, 2, 4, device='cpu'))\n"
+        "assert rc == 0\n"
+        "step, state, batches = train.build_smoke_trainer(arch, device='cpu')\n"
+        "for _ in range(2):\n"
+        "    state, m = step(state, next(batches))\n"
+        "assert int(state.step) == 2 and np.isfinite(float(m['loss']))\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

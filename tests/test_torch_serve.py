@@ -121,10 +121,16 @@ def test_cli_on_the_cpu_exit_zero(tmp_path, argv):
     assert "[done]" in out.stdout
 
 
-@pytest.mark.parametrize("arch", ["mind", "qwen2-1.5b"])
-def test_unported_archs_raise_naming_the_substrate_slice(arch):
-    with pytest.raises(ValueError, match="substrate"):
-        serve.main(["--arch", arch, "--device", "cpu"])
+@pytest.mark.parametrize("arch", ["mind", "qwen2-1.5b", "deepseek-v2-236b", "arctic-480b"])
+def test_lm_and_mind_modes_serve_on_the_cpu(arch, capsys):
+    """The JAX driver's LM and MIND modes: ``--requests 4 --gen 6`` through
+    prefill and greedy decode, or 4 users' interests and one retrieval."""
+    assert serve.main(["--arch", arch, "--device", "cpu", "--requests", "4", "--gen", "6"]) == 0
+    out = capsys.readouterr().out
+    if arch == "mind":
+        assert "[serve] 4 users -> interests (4, 4, 16)" in out and "[retrieval] top-10" in out
+    else:
+        assert "prompt 16 -> +6 tokens" in out and "[done] 4 requests" in out
 
 
 def test_cli_defaults_to_the_card():

@@ -213,7 +213,9 @@ def test_microbatches_must_divide_the_batch():
 
 # -- configs and the smoke trainer --------------------------------------------
 
-@pytest.mark.parametrize("arch_id", ["gcn-cora", "gin-tu", "pna", "nequip"])
+@pytest.mark.parametrize("arch_id", ["gcn-cora", "gin-tu", "pna", "nequip", "yi-9b",
+                                     "qwen2-1.5b", "llama3-405b", "deepseek-v2-236b",
+                                     "arctic-480b", "mind"])
 def test_smoke_trainer_one_step(arch_id):
     """The counterpart of ``tests/test_configs_and_smoke.py::test_arch_smoke_one_train_step``."""
     step_fn, state, batches = ttrain.build_smoke_trainer(arch_id, seed=0, device="cpu")
@@ -245,24 +247,46 @@ def test_published_and_smoke_configs_match_jax(arch_id):
     assert ta.make_config(d_feat=1441).d_feat == 1441
 
 
-@pytest.mark.parametrize("arch_id,slice_word", [
-    ("deepseek-v2-236b", "substrate"), ("yi-9b", "substrate"), ("mind", "substrate"),
-    ("arctic-480b", "substrate"),
-])
-def test_unported_arch_raises_and_names_its_slice(arch_id, slice_word):
-    with pytest.raises(NotImplementedError, match=slice_word):
-        get_arch(arch_id)
-    with pytest.raises(NotImplementedError, match=slice_word):
-        ttrain.build_smoke_trainer(arch_id, device="cpu")
+def _jax_dtype_name(dt):
+    return dt.dtype.name if hasattr(dt, "dtype") else str(dt).replace("torch.", "")
+
+
+@pytest.mark.parametrize("arch_id", ["yi-9b", "qwen2-1.5b", "llama3-405b", "deepseek-v2-236b",
+                                     "arctic-480b", "mind"])
+def test_lm_and_mind_configs_match_jax_field_by_field(arch_id):
+    """The five LMs' and MIND's ArchDefs letter for letter: every field of
+    the published and smoke configs (dtypes by name), family, source,
+    optimizer, learning rate, microbatches, notes and cells."""
+    import dataclasses
+
+    from repro.configs import get_arch as jax_get_arch
+
+    ja, ta = jax_get_arch(arch_id), get_arch(arch_id)
+    for make in ("make_config", "smoke_config"):
+        jc, tc = getattr(ja, make)(), getattr(ta, make)()
+        assert type(tc).__name__ == type(jc).__name__
+        assert [f.name for f in dataclasses.fields(tc)] == [f.name for f in dataclasses.fields(jc)]
+        for f in dataclasses.fields(jc):
+            want, got = getattr(jc, f.name), getattr(tc, f.name)
+            if f.name.endswith("dtype"):
+                assert str(got) == f"torch.{_jax_dtype_name(want)}", (make, f.name)
+            else:
+                assert got == want, (make, f.name)
+    assert (ta.family, ta.source, ta.optimizer, ta.learning_rate, ta.microbatches, ta.notes) == \
+        (ja.family, ja.source, ja.optimizer, ja.learning_rate, ja.microbatches, ja.notes)
+    assert {k: (c.shape_id, c.kind, c.settings, c.skip_reason) for k, c in ta.cells.items()} == \
+        {k: (c.shape_id, c.kind, c.settings, c.skip_reason) for k, c in ja.cells.items()}
 
 
 def test_unknown_arch_raises_key_error_and_apsp_has_no_trainer():
     from repro.configs import ARCH_IDS as JAX_IDS
-    from repro_torch.configs import UNPORTED
+    from repro.configs import ASSIGNED_IDS as JAX_ASSIGNED
+    from repro_torch.configs import ASSIGNED_IDS
 
     with pytest.raises(KeyError):
         get_arch("gpt-5")
-    assert set(ARCH_IDS) | set(UNPORTED) == set(JAX_IDS)
+    assert set(ARCH_IDS) == set(JAX_IDS) and ARCH_IDS == list(JAX_IDS)
+    assert ASSIGNED_IDS == JAX_ASSIGNED
     assert get_arch("apsp").make_config().n == 16384
     with pytest.raises(ValueError, match="no smoke trainer for family apsp"):
         ttrain.build_smoke_trainer("apsp", device="cpu")
