@@ -121,6 +121,22 @@ on four gloo ranks on the card on a (2, 2, 1) mesh against the plain
 step, the parameters bit-equal across ranks.  No kernel of this repo lies
 on that path: the launch counters must not move.
 
+Phase 12 holds the port's dry run (``repro_torch.launch.dryrun``) against
+the card: (a) every (arch x shape) cell on the virtual 16 x 16 and
+(2, 16, 16) meshes, traced on ``meta`` tensors in the background at the
+lowest priority from phase 1 on, ends ``ok`` or ``skipped`` with its
+config's reason, none ``FAILED`` (GB a rank, bottleneck and floor
+printed); (b) ``apsp:square_4k``, ``apsp:blocked_16k``,
+``gcn-cora:full_graph_sm``, ``nequip:molecule``, ``mind:serve_p99``,
+``mind:retrieval_cand`` and, if predicted to fit with 10% to spare,
+``gcn-cora:ogb_products`` run one real step on a 1 x 1 mesh from arguments
+drawn on the card: each kernel's launches equal the prediction and the
+counters, its reported work prices (``repro_torch.roofline.kernels``) to
+the predicted bound, the argument bytes equal the prediction, and the
+dot FLOPs (against ``FlopCounterMode``) and the peak memory (against
+``max_memory_allocated``) are printed as ratios.  The kernels line's
+bounds come from ``repro_torch.roofline.kernels``.
+
 Every launch check reads the port's launch counters (``kernels/
 _counts.py``), never ``torch.profiler``, which can lose a grid of a trace
 (PERF.md §7); the profiler's count of each kernel's grids is printed
@@ -175,10 +191,6 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 SEMIRING_NAMES = ("tropical", "bottleneck", "reliability", "boolean")
-# Published H100 SXM constants for the bound (NVIDIA's data sheet): FP32
-# lanes per SM (each issues one ⊗ or one ⊕ a cycle) and the HBM3 rate.
-FP32_LANES_PER_SM = 128
-HBM_BYTES_PER_S = 3.35e12
 # Tile sizes that exercise the cluster closure's layout (8 CTAs a tile):
 # B < 8 (CTAs that own no rows), B not a multiple of 8, one row a CTA, and
 # full width.
@@ -494,16 +506,12 @@ def row_close_times(h: torch.Tensor):
     return out
 
 
-def row_close_bound(mode: str, r: int, n: int, lane_rate: float):
-    """(operations ms, bytes ms) of one row-close pass: r*n*n candidates at
-    two FP32 instructions (four with a witness) over the card's FP32 issue
-    rate; against D read once, the row ids, Z written once and, with a
-    witness, K* or the preds written once and, for the preds, one pred read
-    an output (the kept pred[R[i], j] or the winner's pred[k*, j])."""
-    track = mode != "row_close"
-    ops_ms = (4 if track else 2) * r * n * n / lane_rate * 1e3
-    words = n * n + r + r * n * {"row_close": 1, "row_close_argmin": 2, "row_close_pred": 3}[mode]
-    return ops_ms, 4 * words / HBM_BYTES_PER_S * 1e3
+def bounds():
+    """``repro_torch.roofline.kernels``: each kernel's work and least time
+    on the card (importable once the repo's ``src/`` is on the path)."""
+    from repro_torch.roofline import kernels
+
+    return kernels
 
 
 SASS_FUNC = re.compile(r"Function : (\S+)")
@@ -1597,9 +1605,8 @@ def drive_serving(card: str, scratch: Path, lane_rate: float):
                            reps=10)
         del d_st, p_st
         # a pass reads the state and writes the new one (preds too)
-        pass_bytes = g * n * n * 4 * 2 * (2 if pred else 1)
-        bound = pass_bytes / HBM_BYTES_PER_S * 1e3
-        ops_bound = g * n * n * kb * (4 if pred else 2) / lane_rate * 1e3
+        w = bounds().rank_k_pass_work(g, n, kb, pred)
+        bound, ops_bound = w.bytes_ms(), w.ops_ms(lane_rate)
         times[lbl] = {"batched_ms": bat, "sequential_ms": seq, "passes": passes,
                       "twin_passes": own, "pass_ms": pass_ms, "one_graph_pass_ms": one_ms,
                       "pass_bound_ms": max(bound, ops_bound),
@@ -1752,8 +1759,8 @@ def drive_training(card: str, scratch: Path, h8192: torch.Tensor, lane_rate: flo
         ms = median_ms(lambda: repro_torch.spd_features(h, lm, cap=cap), reps=3)
         d0 = h[lm.cuda()].contiguous()
         hop_ms = median_ms(lambda: mp.minplus_cuda(d0, h, d0), reps=10)
-        ops_hop = 2 * n_lm * n * n / lane_rate * 1e3
-        bytes_hop = 4 * (n * n + 2 * n_lm * n) / HBM_BYTES_PER_S * 1e3
+        w = bounds().spd_hop_work(n_lm, n)
+        ops_hop, bytes_hop = w.ops_ms(lane_rate), w.bytes_ms()
         bound_hop = max(ops_hop, bytes_hop)
         times[f"spd {lbl}"] = {
             "ms": ms, "hops": hops, "ms_per_hop": ms / hops, "minplus_launch_ms": hop_ms,
@@ -2105,24 +2112,25 @@ def drive_distributed(card: str, scratch: Path, h_np: np.ndarray, want: torch.Te
     y = operand(rng, (panel, half), "tropical")
     a = operand(rng, (half, half), "tropical", density=0.2)
     piv = torch.from_numpy(in_domain(rng, b, "tropical")).cuda()
-    shapes = {   # label: (kernel, args, candidates, bytes)
+    rk = bounds()
+    shapes = {   # label: (kernel, args, work)
         f"SUMMA panel {half}x{panel} x {panel}x{half} accumulate (squaring, 2x2)":
-            ("minplus", (x, y, a), half * panel * half, 4 * (2 * half * panel + 2 * half * half)),
+            ("minplus", (x, y, a), rk.minplus_work(1, half, panel, half, accumulate=True)),
         f"fw_distributed update {half}x{b} x {b}x{half} accumulate (2x2)":
-            ("minplus", (x[:, :b], y[:b], a), half * b * half, 4 * (2 * half * b + 2 * half * half)),
+            ("minplus", (x[:, :b], y[:b], a), rk.minplus_work(1, half, b, half, accumulate=True)),
         f"fw_distributed row panel {b}x{b} x {b}x{half}":
-            ("minplus", (piv, y[:b]), b * b * half, 4 * (b * b + 2 * b * half)),
+            ("minplus", (piv, y[:b]), rk.minplus_work(1, b, b, half)),
         f"fw_distributed column panel {half}x{b} x {b}x{b}":
-            ("minplus", (x[:, :b], piv), half * b * b, 4 * (b * b + 2 * half * b)),
+            ("minplus", (x[:, :b], piv), rk.minplus_work(1, half, b, b)),
         f"fw_distributed pivot closure T=1 B={b}":
-            ("fw_block", (piv[None],), b ** 3, 4 * 2 * b * b),
+            ("fw_block", (piv[None],), rk.fw_block_work(1, b)),
     }
     extra = {"minplus": {}, "fw_block": {}}
-    for label, (kind, args, cand, nbytes) in shapes.items():
+    for label, (kind, args, w) in shapes.items():
         hold(kind, f"{label} (phase 10b's shape)", *args)
         cuda_fn = mp.minplus_cuda if kind == "minplus" else fb.fw_block_cuda
         ms = median_ms(lambda: cuda_fn(*args), reps=10)
-        bound = max(2 * cand / lane_rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3)
+        bound = max(w.ops_ms(lane_rate), w.bytes_ms())
         extra[kind][f"10b {label}"] = {"ms": ms, "bound_ms": bound}
     del x, y, a, piv
 
@@ -2762,6 +2770,191 @@ def drive_substrate(card: str, scratch: Path):
     return times
 
 
+# Phase 12: the dry run (``repro_torch.launch.dryrun``) of every cell on both
+# production meshes, traced on the host in the background from the start,
+# and real steps on a 1 x 1 mesh against its prediction for the same shape.
+DRYRUN_JOBS = 6
+DRYRUN_WAIT_S = 600
+REAL_CELLS = (("apsp", "square_4k"), ("apsp", "blocked_16k"), ("gcn-cora", "full_graph_sm"),
+              ("nequip", "molecule"), ("mind", "serve_p99"), ("mind", "retrieval_cand"),
+              ("gcn-cora", "ogb_products"))
+# Cells run only if their predicted peak leaves this share of the card free.
+SPARE = {("gcn-cora", "ogb_products"): 0.1}
+BACKGROUND = []        # processes the smoke started, stopped when it ends
+
+
+def start_dryrun(out_dir: Path):
+    """Start phase 12a: ``python -m repro_torch.launch.dryrun --all --mesh
+    both`` in a session of its own at the lowest priority (nice 19), with no
+    card visible, so that it traces on the host's idle cores while the
+    earlier phases run.  Returns (process, log path)."""
+    log = out_dir.parent / "dryrun.log"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    argv = ["--all", "--mesh", "both", "--jobs", str(DRYRUN_JOBS), "--out-dir", str(out_dir)]
+    # The priority is set in the child itself (its workers inherit it).
+    code = ("import os, sys\nos.nice(19)\nfrom repro_torch.launch import dryrun\n"
+            f"sys.exit(dryrun.main({argv!r}))\n")
+    with open(log, "w") as f:
+        proc = subprocess.Popen([sys.executable, "-c", code], stdout=f,
+                                stderr=subprocess.STDOUT, env=env, cwd=ROOT,
+                                start_new_session=True)
+    BACKGROUND.append(proc)
+    return proc, log
+
+
+def stop_background() -> None:
+    """Kill every process group the smoke started that still runs."""
+    import signal
+
+    for proc in BACKGROUND:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+
+
+def drive_dryrun(card: str, proc, log: Path, out_dir: Path):
+    """Phase 12.  (a) Wait for the background dry run; every (arch x shape)
+    cell on both meshes must end ``ok``, or ``skipped`` with its config's
+    reason, and none ``FAILED``; print each cell's GB a rank, the bottleneck
+    and the floor.  (b) For each of ``REAL_CELLS``: the dry run on a 1 x 1
+    meta mesh, then, where the predicted peak fits the card (with
+    ``SPARE``), the real step on the card from arguments drawn on it
+    (``DryRunnable.concrete``): the argument bytes equal the prediction's,
+    each kernel's launches equal the wrappers' counters and its work, priced
+    by ``repro_torch.roofline.kernels``, the bound the launches report on
+    the card, the outputs' shapes the prediction's (finite; APSP equal to
+    ``repro_torch.solve``); printed beside them, the dot FLOPs against
+    ``FlopCounterMode`` and the predicted peak against
+    ``max_memory_allocated`` over the arguments' baseline."""
+    import contextlib
+    import gc
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    import repro_torch
+    from repro_torch.configs import ARCH_IDS, get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.builders import build_cell
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.roofline import HW
+    from repro_torch.roofline.op_cost import OpCounter
+    from repro_torch.tree import leaves
+
+    t_phase = time.perf_counter()
+    try:
+        rc = proc.wait(timeout=DRYRUN_WAIT_S)
+    except subprocess.TimeoutExpired:
+        raise SmokeFailure(f"12a: the dry run did not end within {DRYRUN_WAIT_S} s of phase 12; "
+                           f"{log.read_text()[-2000:]}")
+    waited = time.perf_counter() - t_phase
+    text = log.read_text()
+    done = [line for line in text.splitlines() if line.startswith("dry-run done:")]
+    check(rc == 0 and len(done) == 1 and " 0 FAILED" in done[0] and "[FAIL]" not in text,
+          f"12a: the dry run exited {rc}; {text[-3000:]}")
+    want = {f"{a}:{s}@{m}": c.skip_reason for a in ARCH_IDS for s, c in get_arch(a).cells.items()
+            for m in ("pod16x16", "pod2x16x16")}
+    recs = {r["cell"]: r for r in (json.loads(p_.read_text()) for p_ in out_dir.glob("*.json"))}
+    check(set(recs) == set(want), f"12a: records for {sorted(set(recs) ^ set(want))} differ")
+    table = {}
+    for tag, reason in want.items():
+        r = recs[tag]
+        if reason:
+            check(r["status"] == "skipped" and r["reason"] == reason,
+                  f"12a: {tag} should be skipped ({reason}), is {r['status']}")
+            continue
+        check(r["status"] == "ok", f"12a: {tag} ended {r['status']}: {r.get('error')}")
+        m_ = r["memory"]
+        table[tag] = {"gb_a_rank": m_["total_gb"], "fits_80gb": m_["fits"],
+                      "bottleneck": r["roofline"]["bottleneck"],
+                      "floor_s": r["floor"]["floor_s"], "trace_s": r["trace_s"]}
+        print(f"12a {tag}: {m_['total_gb']:.3f} GB a rank ({'fits' if m_['fits'] else 'over'} "
+              f"80 GB), bottleneck {r['roofline']['bottleneck']}, floor "
+              f"{r['floor']['floor_s']:.4e} s, traced in {r['trace_s']} s")
+    n_ok, n_skip = len(table), sum(1 for v in want.values() if v)
+    print(f"phase 12a: {n_ok} ok, {n_skip} skipped, 0 FAILED on both meshes; {done[0]}; "
+          f"phase 12 waited {waited:.1f} s for it")
+
+    meta = make_host_mesh(device="meta")
+    real_cells = {}
+    for arch_id, shape_id in REAL_CELLS:
+        arch = get_arch(arch_id)
+        cell = arch.cells[shape_id]
+        label = f"{arch_id}:{shape_id}"
+        pred = dryrun.predict(build_cell(arch, cell, meta), meta)
+        mem = pred["memory"]["bytes"]
+        spare = SPARE.get((arch_id, shape_id), 0.0)
+        kernels = pred["kernels"]
+        entry = {"predicted_gb": mem["total"] / 1e9, "predicted_args_gb": mem["args"] / 1e9,
+                 "spare": spare, "fits": mem["total"] <= (1 - spare) * HW.HBM_BYTES,
+                 "predicted_launches": {k: v["launches"] for k, v in kernels.items()},
+                 "predicted_bound_ms": {k: v["bound_ms"] for k, v in kernels.items()},
+                 "predicted_dot_flops": pred["roofline"]["dot_flops"],
+                 "predicted_t_s": {k: pred["roofline"][k] for k in
+                                   ("t_compute_s", "t_memory_s", "t_collective_s")},
+                 "trace_s": pred["trace_s"]}
+        if not entry["fits"]:
+            print(f"12b {label}: predicted {entry['predicted_gb']:.2f} GB does not fit the "
+                  f"card's 80 GB with {spare:.0%} to spare: not run")
+            real_cells[label] = entry
+            continue
+        dr = build_cell(arch, cell, make_host_mesh(device="cuda"))
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        args = dr.concrete("cuda", seed=0)
+        arg_bytes = sum(t.numel() * t.element_size() for t in leaves(args))
+        check(arg_bytes == mem["args"], f"12b {label}: argument bytes {arg_bytes} differ from "
+              f"the predicted {mem['args']}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = launch_counts()
+        grad = contextlib.nullcontext() if dr.train else torch.no_grad()
+        t0 = time.perf_counter()
+        with grad, FlopCounterMode(display=False) as fc, OpCounter() as oc:
+            out = dr.fn(*args)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() - base
+        launched = {k: v - before[k] for k, v in launch_counts().items() if v != before[k]}
+        check(launched == entry["predicted_launches"],
+              f"12b {label}: launched {launched}, predicted {entry['predicted_launches']}")
+        real_bound = {k: v["bound_ms"] for k, v in oc.cost.kernels.items()}
+        check(real_bound == entry["predicted_bound_ms"],
+              f"12b {label}: the launches' bounds {real_bound} differ from the predicted "
+              f"{entry['predicted_bound_ms']}")
+        outs = [t for t in leaves(out) if isinstance(t, torch.Tensor)]
+        check([list(t.shape) for t in outs] == pred["out_shapes"],
+              f"12b {label}: output shapes differ from the prediction's")
+        check(all(bool(torch.isfinite(t).all()) for t in outs if t.is_floating_point()
+                  and arch_id != "apsp"), f"12b {label}: a non-finite output")
+        if arch_id == "apsp":
+            check(same(out, repro_torch.solve(args[0]).dist),
+                  f"12b {label}: differs from repro_torch.solve")
+        entry.update({"ran": True, "args_gb": arg_bytes / 1e9, "peak_gb": peak / 1e9,
+                      "predicted_over_peak": mem["total"] / peak, "launches": launched,
+                      "dot_flops": fc.get_total_flops(),
+                      "dot_flops_ratio": (entry["predicted_dot_flops"] / fc.get_total_flops()
+                                          if fc.get_total_flops() else None),
+                      "step_ms_host_clock": step_ms})
+        print(f"12b {label} on {card}: ran; argument bytes {arg_bytes} as predicted; launches "
+              f"{launched} as predicted; kernel bounds {real_bound} ms as predicted; dot FLOPs "
+              f"{entry['predicted_dot_flops']:.6e} predicted, {fc.get_total_flops():.6e} by "
+              f"FlopCounterMode; peak {peak / 1e9:.4f} GB over the baseline, predicted "
+              f"{entry['predicted_gb']:.4f} (ratio {entry['predicted_over_peak']:.4f}); step "
+              f"{step_ms:.1f} ms (host clock, counters on)")
+        real_cells[label] = entry
+        del args, out, outs, dr
+        gc.collect()
+        torch.cuda.empty_cache()
+    ran = sum(1 for e in real_cells.values() if e.get("ran"))
+    check(all(e.get("ran") or not e["fits"] for e in real_cells.values()),
+          "12b: a cell predicted to fit did not run")
+    print(f"phase 12 on {card}: {time.perf_counter() - t_phase:.1f} s; 12b ran {ran} of "
+          f"{len(real_cells)} cells; {json.dumps({'dryrun': table, 'real': real_cells})}")
+    return real_cells
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2777,6 +2970,7 @@ def main() -> int:
     try:
         return run(scratch)
     finally:
+        stop_background()
         shutil.rmtree(scratch, ignore_errors=True)
 
 
@@ -2803,6 +2997,8 @@ def run(scratch: Path) -> int:
     # 1. The card and the build.
     card = nvidia_smi("name,power.limit")
     print(card)
+    # Phase 12a's dry run traces on the host's idle cores from here on.
+    dry_proc, dry_log = start_dryrun(scratch / "dryrun")
     clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -3268,7 +3464,7 @@ def run(scratch: Path) -> int:
 
     elapsed("phase 6")
     # 6 (run here, before the kernels line). The dynamic engine at N = 8192.
-    lane_rate = sms * FP32_LANES_PER_SM * clock_mhz * 1e6
+    lane_rate = bounds().lane_rate(sms, clock_mhz)
     dynamic_launches, dynamic_ms, row_close_err = drive_dynamic(dev, card)
     path_launches["dynamic N=8192"] = dynamic_launches
 
@@ -3282,7 +3478,8 @@ def run(scratch: Path) -> int:
     by_shape = {}
     for r, t_ in rc_times.items():
         for mode in ROW_CLOSE_MODES:
-            ops_k, bytes_k = row_close_bound(mode, r, n, lane_rate)
+            w = bounds().row_close_work(mode, r, n)
+            ops_k, bytes_k = w.ops_ms(lane_rate), w.bytes_ms()
             by_shape[f"{mode} r={r}"] = {
                 "ms": t_[f"{mode} kernel"], "call_ms": t_[mode],
                 "bound_ms": max(ops_k, bytes_k),
@@ -3393,9 +3590,8 @@ def run(scratch: Path) -> int:
     # instructions, over N*N*B (update) + N*B*B (col') + B^3 (closure)
     # candidates, at one instruction per lane a cycle; against reading and
     # writing D once.
-    candidates = n * n * b + n * b * b + b ** 3
-    ops_ms = 2 * candidates / (sms * FP32_LANES_PER_SM * clock_mhz * 1e6) * 1e3
-    bytes_ms = 2 * n * n * h_dev.element_size() / HBM_BYTES_PER_S * 1e3
+    w = bounds().fw_round_work(1, n, b, h_dev.element_size())
+    ops_ms, bytes_ms = w.ops_ms(bounds().lane_rate(sms, clock_mhz)), w.bytes_ms()
     bound_ms = max(ops_ms, bytes_ms)
     line = {
         "name": "fw_round",
@@ -3447,13 +3643,16 @@ def run(scratch: Path) -> int:
     row = h_dev[o:o + b, :].contiguous()
     piv = h_dev[o:o + b, o:o + b].contiguous()
     ppiv = init_pred(h_dev)[o:o + b, o:o + b].contiguous()
-    work = {   # kind: (args, candidates, instructions a candidate, bytes, shape)
-        "minplus": ((col, row, h_dev), n * n * b, 2, 4 * (2 * n * b + 2 * n * n),
+    rk = bounds()
+    work = {   # kind: (args, work, shape)
+        "minplus": ((col, row, h_dev), rk.minplus_work(1, n, b, n, accumulate=True),
                     f"{n}x{b} x {b}x{n} accumulate (split round, full update)"),
-        "minplus_argmin": ((col, row, h_dev), n * n * b, 4, 4 * (2 * n * b + 3 * n * n),
+        "minplus_argmin": ((col, row, h_dev),
+                           rk.minplus_work(1, n, b, n, mode="minplus_argmin", accumulate=True),
                            f"{n}x{b} x {b}x{n} accumulate (pred round, stage 3)"),
-        "fw_block": ((piv[None],), b ** 3, 2, 4 * 2 * b * b, f"T=1 B={b}"),
-        "fw_block_pred": ((piv[None], ppiv[None]), b ** 3, 4, 4 * 4 * b * b, f"T=1 B={b}"),
+        "fw_block": ((piv[None],), rk.fw_block_work(1, b), f"T=1 B={b}"),
+        "fw_block_pred": ((piv[None], ppiv[None]), rk.fw_block_work(1, b, pred=True),
+                          f"T=1 B={b}"),
     }
     # The rank-k shapes of the dynamic engine: (n, K) x (K, n) accumulate
     # into the state, K the padded batch width.
@@ -3495,15 +3694,14 @@ def run(scratch: Path) -> int:
         names = (kind, "minplus_pred") if kind == "minplus_argmin" else (kind,)
         return sum(counts_.get(k_, 0) for k_ in names)
 
-    for kind, (args, cand, per_cand, nbytes, shape) in work.items():
+    for kind, (args, w, shape) in work.items():
         cuda_fn, plain_fn = pairs[kind]
         compare_new(kind, f"{shape} (main path's shape)", *args)
         for lbl, a_ in other_shapes.get(kind, {}).items():
             compare_new(kind, f"{lbl} (main path's shape)", *a_)
         k_ms = median_ms(lambda: cuda_fn(*args), reps=10)
         p_ms = median_ms(lambda: plain_fn(*args), reps=3)
-        ops_k = per_cand * cand / lane_rate * 1e3
-        bytes_k = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_k, bytes_k = w.ops_ms(lane_rate), w.bytes_ms()
         entry = {
             "name": kind,
             "route": "cuda",
@@ -3519,7 +3717,7 @@ def run(scratch: Path) -> int:
             "plain_ms": p_ms,
             "bound_ms": max(ops_k, bytes_k),
             "bound_by": "operations" if ops_k >= bytes_k else "bytes",
-            "instructions_per_candidate": per_cand,
+            "instructions_per_candidate": w.instructions,
             "bound_clock_mhz": clock_mhz,
             "library_ms": None,
             "shape": shape,
@@ -3558,16 +3756,22 @@ def run(scratch: Path) -> int:
             for lbl, (*a_, ko, jo) in pred_shapes.items():
                 entry["other_shapes_ms"][lbl] = median_ms(
                     lambda: mp.minplus_pred_cuda(*a_, k_offset=ko, j_offset=jo), reps=10)
-            entry["bound_ms stage 2"] = per_cand * n * b * b / lane_rate * 1e3
+            entry["bound_ms stage 2"] = rk.minplus_work(
+                1, n, b, b, mode="minplus_argmin", accumulate=True).ops_ms(lane_rate)
         lines.append(entry)
         print(f"{kind} on {card}: {k_ms:.4f} ms at {shape} (median of 10), bound "
               f"{entry['bound_ms']:.4f} ms by {entry['bound_by']} (operations {ops_k:.4f} ms "
-              f"at {per_cand} instructions a candidate, bytes {bytes_k:.4f} ms), plain "
+              f"at {w.instructions} instructions a candidate, bytes {bytes_k:.4f} ms), plain "
               f"{p_ms:.3f} ms; other shapes {entry['other_shapes_ms']}")
     lines.append(row_close_entry)
     print(f"solve ms at N=8192 (median of 3): {json.dumps(solves)}")
     print(f"dynamic update ms at N=8192 by path (medians): "
           f"{json.dumps({k: v['median_ms'] for k, v in dynamic_ms.items() if 'median_ms' in v})}")
+    elapsed("phase 12")
+    # 12 (run here, before the kernels line). The dry run of every cell on
+    # both production meshes, and real steps on a 1 x 1 mesh against it.
+    drive_dryrun(card, dry_proc, dry_log, scratch / "dryrun")
+
     elapsed("the kernels line")
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {

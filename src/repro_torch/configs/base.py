@@ -3,9 +3,9 @@
 A copy of ``repro.configs.base`` (the same data; the port imports nothing
 of the JAX package).  An ArchDef carries the exact published
 configuration, its shape-cell table, the optimizer/precision policy, and a
-reduced smoke configuration.  The JAX package's launch layer
-(``repro.launch.builders``, the dry run) waits for a later slice of the
-port (ROADMAP.md queue 1).
+reduced smoke configuration.  ``launch.builders`` and the dry run
+(``launch/dryrun.py``) turn each (arch, cell) into a step on ``meta``
+tensors.
 """
 
 from __future__ import annotations

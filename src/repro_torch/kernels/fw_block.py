@@ -26,7 +26,13 @@ closure, as in the JAX oracle.
   scratch of :func:`grid_lines_words` words.  :func:`closure_launch` picks
   the plan by B (the fused round's closure takes the same plans).
 
+On ``meta`` tensors (the dry run) the ``*_cuda`` wrappers allocate the same
+outputs and scratch and launch nothing.
+
 ``launches`` counts the calls of each wrapper that launched its kernel.
+Each call, launched or on ``meta``, reports its work
+(``roofline.kernels.fw_block_work``) and plan to the dry run's counter, if
+one runs (``roofline.op_cost.report_kernel``).
 """
 
 from __future__ import annotations
@@ -37,6 +43,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.core.semiring import SemiringLike, get_semiring
+from repro_torch.roofline import op_cost
+from repro_torch.roofline.kernels import fw_block_work
 
 from . import _counts
 from ._codes import semiring_code
@@ -147,8 +155,8 @@ def _launch(name: str, d, p, semiring) -> Tuple[torch.Tensor, Optional[torch.Ten
     for t, dtype in ((d, torch.float32), (p, torch.int32)):
         if t is None:
             continue
-        if not t.is_cuda:
-            raise ValueError(f"{name} takes CUDA tensors, got one on {t.device}")
+        if not (t.is_cuda or t.is_meta):
+            raise ValueError(f"{name} takes CUDA (or meta) tensors, got one on {t.device}")
         if t.dtype != dtype:
             raise TypeError(f"{name} takes {dtype} here, got {t.dtype}")
         if not t.is_contiguous():
@@ -165,11 +173,16 @@ def _launch(name: str, d, p, semiring) -> Tuple[torch.Tensor, Optional[torch.Ten
     code = semiring_code(sr, name)
     z = torch.empty_like(d)
     pz = None if p is None else torch.empty_like(p)
-    from . import _build
-
     plan = closure_launch(b, pred=p is not None)
     lines = (torch.empty(grid_lines_words(b, tiles, p is not None), dtype=torch.int32,
                          device=d.device) if b > MAX_BLOCK else None)
+    work = fw_block_work(tiles, b, pred=p is not None)
+    report = dict(shape=f"T={tiles} B={b}", plan=tuple(plan))
+    if d.is_meta:
+        op_cost.report_kernel(name, work, **report)
+        return z, pz
+    from . import _build
+
     fn = _build.function("fw_block", "fw_block_launch",
                          [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                          + [ctypes.c_void_p] * 2)
@@ -180,6 +193,7 @@ def _launch(name: str, d, p, semiring) -> Tuple[torch.Tensor, Optional[torch.Ten
     if err:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
     _counts.bump(launches, name)
+    op_cost.report_kernel(name, work, **report)
     return z, pz
 
 

@@ -21,6 +21,11 @@ paths agree exactly.
 * :func:`fw_round` picks between them by the tensor's device
   (``ops.backend``).
 
+On ``meta`` tensors (the dry run) :func:`fw_round_cuda` allocates the same
+scratch and launches nothing.  Each call, launched or on ``meta``, reports
+its work (``roofline.kernels.fw_round_work``) and plan to the dry run's
+counter, if one runs (``roofline.op_cost.report_kernel``).
+
 ``rounds`` counts the calls of :func:`fw_round_cuda` that launched the
 kernel's round (four grids each: the closure, ``fw_panels``,
 ``fw_colpanel`` and ``fw_update``; the closure is the cluster closure
@@ -37,6 +42,8 @@ import ctypes
 import torch
 
 from repro_torch.core.semiring import SemiringLike, get_semiring
+from repro_torch.roofline import op_cost
+from repro_torch.roofline.kernels import fw_round_work
 
 from . import _counts
 from ._codes import semiring_code
@@ -87,12 +94,13 @@ def fw_round_torch(
 def fw_round_cuda(
     d: torch.Tensor, o: int, *, block_size: int, semiring: SemiringLike = "tropical"
 ) -> torch.Tensor:
-    """Launch the CUDA kernel's round on ``d``, in place; returns ``d``."""
+    """Launch the CUDA kernel's round on ``d``, in place; returns ``d`` (on
+    ``meta``: launches nothing)."""
     global rounds
     sr = get_semiring(semiring)
     b = int(block_size)
-    if not d.is_cuda:
-        raise ValueError(f"fw_round_cuda takes a CUDA tensor, got one on {d.device}")
+    if not (d.is_cuda or d.is_meta):
+        raise ValueError(f"fw_round_cuda takes a CUDA (or meta) tensor, got one on {d.device}")
     if d.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"fw_round_cuda takes float32 or bfloat16, got {d.dtype}")
     if not d.is_contiguous():
@@ -107,16 +115,22 @@ def fw_round_cuda(
     if o % b or not 0 <= o < n:
         raise ValueError(f"pivot offset {o} is not a block of N={n}, B={b}")
     code = semiring_code(sr, "fw_round")
-    from . import _build
-
-    fn = _build.function("fw_round", "fw_round_launch",
-                         [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6
-                         + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 2)
     shapes = scratch_shapes(g, n, b)
     f32 = dict(dtype=torch.float32, device=d.device)
     w = {k: torch.empty(shapes[k], **f32) for k in ("apiv", "colt", "rowp", "coln", "apv")}
     lines = (torch.empty(shapes["lines"], dtype=torch.int32, device=d.device)
              if "lines" in shapes else None)
+    report = dict(shape=f"G={g} N={n} B={b}", plan={"scratch": shapes,
+                                                    "closure": tuple(closure_launch(b))})
+    work = fw_round_work(g, n, b, d.element_size())
+    if d.is_meta:
+        op_cost.report_kernel("fw_round", work, **report)
+        return d
+    from . import _build
+
+    fn = _build.function("fw_round", "fw_round_launch",
+                         [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6
+                         + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 2)
     stream = torch.cuda.current_stream(d.device).cuda_stream
     err = fn(code, int(d.dtype == torch.bfloat16), d.data_ptr(),
              *(w[k].data_ptr() for k in ("apiv", "colt", "rowp", "coln", "apv")), g, n, b, o,
@@ -126,15 +140,17 @@ def fw_round_cuda(
         raise RuntimeError(f"fw_round kernel launch failed: cudaError_t {err}")
     with _counts.lock:
         rounds += 1
+    op_cost.report_kernel("fw_round", work, **report)
     return d
 
 
 def fw_round(
     d: torch.Tensor, o: int, *, block_size: int, semiring: SemiringLike = "tropical"
 ) -> torch.Tensor:
-    """One fused round: the CUDA kernel for a CUDA tensor (in place), the
-    plain version for a CPU tensor, as ``ops.backend`` decides."""
+    """One fused round: the CUDA kernel for a CUDA tensor (in place; on a
+    ``meta`` tensor its wrapper launches nothing), the plain version for a
+    CPU tensor, as ``ops.backend`` decides."""
     from .ops import backend
 
-    fn = fw_round_cuda if backend(d) == "cuda" else fw_round_torch
+    fn = fw_round_torch if backend(d) == "torch" else fw_round_cuda
     return fn(d, o, block_size=block_size, semiring=semiring)

@@ -41,9 +41,13 @@ f32 arithmetic, output in ``x``'s dtype.
   :func:`minplus_pred_cuda` launch the hand-written kernel
   (``csrc/minplus.cu``) on float32 CUDA tensors (int32 preds).  Operands may
   be strided views with unit column stride; each launch is two grids, the
-  k-major copy of X (``kmajor``) and the product.
+  k-major copy of X (``kmajor``) and the product.  On ``meta`` tensors (the
+  dry run) they allocate the same outputs and scratch and launch nothing.
 
 ``launches`` counts the calls of each wrapper that launched its kernel.
+Each call, launched or on ``meta``, reports its work
+(``roofline.kernels.minplus_work``) to the dry run's counter, if one runs
+(``roofline.op_cost.report_kernel``).
 """
 
 from __future__ import annotations
@@ -55,6 +59,8 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core.semiring import Semiring, SemiringLike, get_semiring
+from repro_torch.roofline import op_cost
+from repro_torch.roofline.kernels import minplus_work
 
 from . import _counts
 from ._codes import semiring_code
@@ -227,8 +233,8 @@ def _check(name: str, x, y, a, dtype=torch.float32,
     for label, t in zip(what, (x, y, a)):
         if t is None:
             continue
-        if not t.is_cuda:
-            raise ValueError(f"{name} takes CUDA tensors, got {label} on {t.device}")
+        if not (t.is_cuda or t.is_meta):
+            raise ValueError(f"{name} takes CUDA (or meta) tensors, got {label} on {t.device}")
         if t.dtype != dtype:
             raise TypeError(f"{name} takes {dtype} {label} (ops upcasts bf16), got {t.dtype}")
         if not _rows_ok(t):
@@ -303,6 +309,12 @@ def _launch(name: str, mode: int, x, y, a, semiring, px=None, py=None, pa=None,
     if k:
         y = ring_rows(y)
         ny = _ring_limit(y, n)
+    work = minplus_work(g, m, k, n, mode=name, accumulate=a is not None)
+    report = dict(shape=f"{g}x{m}x{k}x{n}" + (" accumulate" if a is not None else ""),
+                  plan={"xt_pitch": mp, "ny": ny})
+    if x.is_meta:
+        op_cost.report_kernel(name, work, **report)
+        return z, out
     from . import _build
 
     fn = _build.function("minplus", "minplus_launch",
@@ -317,6 +329,7 @@ def _launch(name: str, mode: int, x, y, a, semiring, px=None, py=None, pa=None,
     if err:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
     _counts.bump(launches, name)
+    op_cost.report_kernel(name, work, **report)
     return z, out
 
 

@@ -3,7 +3,11 @@
 Every solver in ``repro_torch.core`` reaches a kernel through this module.
 The backend follows the tensor: a CUDA tensor runs the hand-written kernel
 and a CPU tensor runs the plain PyTorch version.  There is no other way to
-choose, so a CUDA tensor never falls back to the plain version.
+choose, so a CUDA tensor never falls back to the plain version.  A
+``meta`` tensor (the dry run, ``launch/dryrun.py``) takes the kernel's
+wrapper too, which allocates its outputs on ``meta``, reports its launch
+plan and work to the dry run's counter and launches nothing: the plain
+version would loop over k chunks and be priced as other work.
 
 Every entry point of the JAX file is ported: ``minplus``,
 ``minplus_argmin``, ``pred_from_kstar``, ``minplus_pred``,
@@ -61,8 +65,10 @@ MIXED_PRECISION_SEMIRINGS = ("tropical",)
 
 
 def backend(t: torch.Tensor) -> str:
-    """``"cuda"`` for a CUDA tensor, ``"torch"`` (the plain version) else."""
-    return "cuda" if t.is_cuda else "torch"
+    """``"cuda"`` for a CUDA tensor, ``"meta"`` for a meta tensor (the
+    kernel's wrapper, which launches nothing), ``"torch"`` (the plain
+    version) else."""
+    return "cuda" if t.is_cuda else "meta" if t.is_meta else "torch"
 
 
 def _check_mixed(sr: Semiring, *arrays) -> bool:
@@ -129,7 +135,7 @@ def minplus(
     2D or batched (G, ·, ·) operands; a new tensor in ``x``'s dtype."""
     sr = get_semiring(semiring)
     _check_mixed(sr, x, y, a)
-    fn = minplus_cuda if backend(x) == "cuda" else minplus_torch
+    fn = minplus_torch if backend(x) == "torch" else minplus_cuda
     return fn(*_rows(x, y, a), semiring=sr).to(x.dtype)
 
 
@@ -144,7 +150,7 @@ def minplus_argmin(
     improved on ``a`` or on the semiring zero; ties to the smallest k)."""
     sr = get_semiring(semiring)
     _check_mixed(sr, x, y, a)
-    fn = minplus_argmin_cuda if backend(x) == "cuda" else minplus_argmin_torch
+    fn = minplus_argmin_torch if backend(x) == "torch" else minplus_argmin_cuda
     z, ks = fn(*_rows(x, y, a), semiring=sr)
     return z.to(x.dtype), ks
 
@@ -170,7 +176,7 @@ def minplus_pred(
     rule's gathers.  Operands may be strided panels of the state."""
     sr = get_semiring(semiring)
     _check_mixed(sr, x, y, a)
-    fn = minplus_pred_cuda if backend(x) == "cuda" else minplus_pred_torch
+    fn = minplus_pred_torch if backend(x) == "torch" else minplus_pred_cuda
     preds = _rows(px, py, pa, dtype=torch.int32)
     z, pz = fn(*_rows(x, y), *preds[:2], *_rows(a), preds[2], k_offset=k_offset,
                j_offset=j_offset, semiring=sr)
@@ -261,7 +267,7 @@ def row_restricted_close(
     sr = get_semiring(semiring)
     _check_mixed(sr, dist)
     rows = rows.to(device=dist.device, dtype=torch.int32).contiguous()
-    cuda = backend(dist) == "cuda"
+    cuda = backend(dist) != "torch"
     (d,) = _f32(dist)
     if pred is None:
         fn = _row_close.row_close_cuda if cuda else _row_close.row_close_torch
@@ -279,7 +285,7 @@ def fw_block(d: torch.Tensor, *, semiring: SemiringLike = "tropical") -> torch.T
     are closed in f32 and rounded once."""
     sr = get_semiring(semiring)
     _check_mixed(sr, d)
-    fn = fw_block_cuda if backend(d) == "cuda" else fw_block_torch
+    fn = fw_block_torch if backend(d) == "torch" else fw_block_cuda
     return fn(*_f32(d), semiring=sr).to(d.dtype)
 
 
@@ -289,7 +295,7 @@ def fw_block_pred(
     """Closure with predecessors (global node ids in ``p``, int32)."""
     sr = get_semiring(semiring)
     _check_mixed(sr, d)
-    fn = fw_block_pred_cuda if backend(d) == "cuda" else fw_block_pred_torch
+    fn = fw_block_pred_torch if backend(d) == "torch" else fw_block_pred_cuda
     z, pz = fn(*_f32(d), p.contiguous(), semiring=sr)
     return z.to(d.dtype), pz
 

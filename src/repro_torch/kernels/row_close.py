@@ -34,7 +34,12 @@ The caller writes the panel back into the state
   launch.
 
 Witness and NaN rules are those of ``kernels/minplus.py``.  ``launches``
-counts the calls of each wrapper mode that launched its kernel.
+counts the calls of each wrapper mode that launched its kernel.  On
+``meta`` tensors (the dry run) the ``*_cuda`` wrappers plan for the H100
+(``roofline.analysis.HW.SMS``), allocate the same outputs and scratch, skip
+the row check (it reads the ids) and launch nothing.  Each call, launched or
+on ``meta``, reports its work (``roofline.kernels.row_close_work``) and plan
+to the dry run's counter, if one runs (``roofline.op_cost.report_kernel``).
 """
 
 from __future__ import annotations
@@ -45,6 +50,9 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.core.semiring import SemiringLike, get_semiring
+from repro_torch.roofline import op_cost
+from repro_torch.roofline.analysis import HW
+from repro_torch.roofline.kernels import row_close_work
 
 from . import _counts
 from ._codes import semiring_code
@@ -166,9 +174,11 @@ def row_close_pred_torch(
 
 
 def _check(d: torch.Tensor, rows: torch.Tensor) -> Tuple[int, int]:
-    """(r, n) of operands the kernel takes; raises on anything else."""
-    if not (d.is_cuda and rows.is_cuda):
-        raise ValueError(f"row_close takes CUDA tensors, got {d.device} and {rows.device}")
+    """(r, n) of operands the kernel takes; raises on anything else (on
+    ``meta`` the row ids are not read)."""
+    if not ((d.is_cuda and rows.is_cuda) or (d.is_meta and rows.is_meta)):
+        raise ValueError(f"row_close takes CUDA (or meta) tensors, got {d.device} and "
+                         f"{rows.device}")
     if d.dtype != torch.float32:
         raise TypeError(f"row_close takes a float32 matrix (ops upcasts bf16), got {d.dtype}")
     if rows.dtype != torch.int32:
@@ -179,28 +189,31 @@ def _check(d: torch.Tensor, rows: torch.Tensor) -> Tuple[int, int]:
     if not (d.is_contiguous() and rows.is_contiguous()):
         raise ValueError("row_close takes contiguous tensors")
     n = d.shape[0]
-    if bool(((rows < 0) | (rows >= n)).any()):
+    if not d.is_meta and bool(((rows < 0) | (rows >= n)).any()):
         raise IndexError(f"row_close: a row id lies outside [0, {n})")
     return rows.numel(), n
 
 
 def _prepare(name: str, d: torch.Tensor, rows: torch.Tensor, pred: Optional[torch.Tensor],
-             semiring) -> Tuple[Callable[[], int], torch.Tensor, Optional[torch.Tensor]]:
+             semiring) -> Tuple[Callable[[], int], torch.Tensor, Optional[torch.Tensor],
+                                 RowClosePlan]:
     """Check the operands, plan the launch and allocate the outputs and
-    scratches of one pass in mode ``name``: (launch, Z, K* or preds), where
-    ``launch()`` runs the pass's grids on the current stream and returns
-    their cudaError_t.  ``chip_smoke.py`` times ``launch`` alone: the row
-    check here synchronises with the card."""
+    scratches of one pass in mode ``name``: (launch, Z, K* or preds, plan),
+    where ``launch()`` runs the pass's grids on the current stream and
+    returns their cudaError_t (on ``meta``: runs nothing, returns 0).
+    ``chip_smoke.py`` times ``launch`` alone: the row check here
+    synchronises with the card."""
     sr = get_semiring(semiring)
     r, n = _check(d, rows)
     mode = ("row_close", "row_close_argmin", "row_close_pred").index(name)
-    if mode == 2 and not (pred.is_cuda and pred.dtype == torch.int32 and pred.shape == d.shape
-                          and pred.is_contiguous()):
-        raise ValueError(f"row_close_pred takes a contiguous int32 CUDA pred of "
+    if mode == 2 and not (pred.device == d.device and pred.dtype == torch.int32
+                          and pred.shape == d.shape and pred.is_contiguous()):
+        raise ValueError(f"row_close_pred takes a contiguous int32 pred of "
                          f"{tuple(d.shape)}, got {pred.dtype} {tuple(pred.shape)} on "
                          f"{pred.device}")
     code = semiring_code(sr, name)
-    sms = torch.cuda.get_device_properties(d.device).multi_processor_count
+    sms = (HW.SMS if d.is_meta
+           else torch.cuda.get_device_properties(d.device).multi_processor_count)
     plan = launch_plan(r, n, mode != 0, sms)
     dev = d.device
     z = torch.empty((r, n), dtype=torch.float32, device=dev)
@@ -217,6 +230,8 @@ def _prepare(name: str, d: torch.Tensor, rows: torch.Tensor, pred: Optional[torc
         ny = -(-n // 32) * 32
         y = torch.empty((n, ny), dtype=torch.float32, device=dev)
         y[:, :n].copy_(d)
+    if d.is_meta:
+        return (lambda: 0), z, out, plan
     from . import _build
 
     fn = _build.function("row_close", "row_close_launch",
@@ -234,16 +249,22 @@ def _prepare(name: str, d: torch.Tensor, rows: torch.Tensor, pred: Optional[torc
     def launch(held=(d, y, rows, xt, pred, pz, pk)) -> int:   # the buffers live as long
         return fn(*args)
 
-    return launch, z, out
+    return launch, z, out, plan
 
 
 def _launch(name: str, d: torch.Tensor, rows: torch.Tensor, pred: Optional[torch.Tensor],
             semiring) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    launch, z, out = _prepare(name, d, rows, pred, semiring)
+    launch, z, out, plan = _prepare(name, d, rows, pred, semiring)
+    r, n = rows.numel(), d.shape[0]
+    report = dict(shape=f"r={r} n={n}", plan=tuple(plan))
+    if d.is_meta:
+        op_cost.report_kernel(name, row_close_work(name, r, n), **report)
+        return z, out
     err = launch()
     if err:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
     _counts.bump(launches, name)
+    op_cost.report_kernel(name, row_close_work(name, r, n), **report)
     return z, out
 
 

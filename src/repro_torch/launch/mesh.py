@@ -20,6 +20,12 @@ has both for CUDA tensors as NCCL does: several ranks on one card (NCCL
 refuses two ranks on one GPU) run under gloo, which stages each
 collective through the host.
 
+On the ``meta`` device, :func:`make_production_mesh` gives the virtual
+mesh the dry run lays cells over (``launch/dryrun.py``): the same ranks
+and axes and no process groups, seen from rank 0.  A broadcast reports the
+bytes it would send to the dry run's counter (``roofline.op_cost``)
+whether or not the mesh has groups to send them.
+
 Functions, not module constants: importing this module initialises no
 process group.
 """
@@ -109,7 +115,12 @@ class Mesh:
         """``t`` (contiguous, filled on the source, any values elsewhere)
         broadcast in place along ``axes`` from the rank whose index over
         them is ``src_index``: exact under every semiring (the reference's
-        masked ``psum``)."""
+        masked ``psum``).  The dry run's counter takes its bytes when more
+        than one rank lies along ``axes``."""
+        if self.axis_size(axes) > 1:
+            from repro_torch.roofline import op_cost
+
+            op_cost.report_collective("broadcast", t.numel() * t.element_size())
         if self.groups is not None:
             dist.broadcast(t, src=self.rank_along(axes, src_index), group=self.group(axes))
         return t
@@ -152,8 +163,12 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], *, device="cuda") -> Me
 
 
 def make_production_mesh(*, multi_pod: bool = False, device="cuda") -> Mesh:
+    """The production mesh over the process group's ranks; on ``meta`` the
+    virtual one (no process group, rank 0's view) that the dry run uses."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if torch.device(device).type == "meta":
+        return Mesh(np.arange(math.prod(shape)).reshape(shape), axes, "meta")
     return make_mesh(shape, axes, device=device)
 
 

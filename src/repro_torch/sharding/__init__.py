@@ -12,6 +12,7 @@ so the port's tree walks (``repro_torch.tree``) take them as leaves.
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
@@ -93,6 +94,15 @@ class Sharding:
             i = self.mesh.axis_index(e, coords)
             out.append(slice(i * step, (i + 1) * step))
         return tuple(out)
+
+    def local_shape(self, shape: Sequence[int]) -> Tuple[int, ...]:
+        """The shape of the block a rank holds of a global ``shape`` (every
+        rank's is the same: the dimensions divide evenly)."""
+        return tuple(len(range(*s.indices(n))) for s, n in zip(self.local_slices(shape), shape))
+
+    def local_nbytes(self, shape: Sequence[int], dtype: torch.dtype) -> int:
+        """Bytes of a rank's block of a global ``shape`` of ``dtype``."""
+        return math.prod(self.local_shape(shape)) * dtype.itemsize
 
     def local(self, t: torch.Tensor) -> torch.Tensor:
         """This rank's block of the global ``t`` (a view)."""

@@ -175,7 +175,12 @@ def make_train_step(
 def _mean_over(tensors, mesh, axes, n: int):
     """Each tensor's mean over the ranks along ``axes`` (``n`` of them), in
     float32, by one ``all_reduce`` sum of the tensors laid end to end;
-    cast back to each one's dtype."""
+    cast back to each one's dtype.  The dry run's counter takes the bytes
+    it would send, with or without process groups."""
+    if tensors and n > 1:
+        from repro_torch.roofline import op_cost
+
+        op_cost.report_collective("all-reduce", 4 * sum(t.numel() for t in tensors))
     if not tensors or n == 1 or mesh.groups is None:
         return list(tensors)
     flat = torch.cat([t.detach().float().reshape(-1) for t in tensors])

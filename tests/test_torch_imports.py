@@ -83,6 +83,13 @@ def test_port_files_exist():
     "repro_torch.optim.compression",
     "repro_torch.configs.lm_archs",
     "repro_torch.configs.recsys_archs",
+    "repro_torch.roofline",
+    "repro_torch.roofline.analysis",
+    "repro_torch.roofline.op_cost",
+    "repro_torch.roofline.floors",
+    "repro_torch.roofline.kernels",
+    "repro_torch.launch.builders",
+    "repro_torch.launch.dryrun",
 ])
 def test_new_modules_are_scanned_and_import(module):
     path = ROOT / "src" / (module.replace(".", "/") + ".py")
