@@ -2,7 +2,7 @@
 PY ?= python
 export PYTHONPATH := src$(if $(PYTHONPATH),:$(PYTHONPATH))
 
-.PHONY: test test-fast test-dynamic test-resilience lint-dispatch analyze analyze-kernels analyze-baseline check bench bench-smoke bench-check serve-apsp serve-dynamic serve-chaos serve-chaos-correlated
+.PHONY: test test-fast test-dynamic test-resilience lint-dispatch analyze analyze-kernels analyze-torch analyze-baseline check bench bench-smoke bench-check serve-apsp serve-dynamic serve-chaos serve-chaos-correlated
 
 test:           ## tier-1: the whole suite, fail fast
 	$(PY) -m pytest -x -q
@@ -24,6 +24,9 @@ analyze:        ## full invariant sweep: AST checkers + donation sanitizer + ker
 
 analyze-kernels:  ## concolic Pallas grid verifier alone (race/bounds/coverage/padding proofs)
 	$(PY) tools/analyze.py --only kernel-grid
+
+analyze-torch:  ## the PyTorch port's invariant checkers over src/repro_torch (CUDA half on a card)
+	$(PY) -m repro_torch.analysis
 
 analyze-baseline:  ## regenerate the committed machine-readable clean baseline
 	$(PY) tools/analyze.py --json > ANALYZE_baseline.json

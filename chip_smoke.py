@@ -2955,6 +2955,133 @@ def drive_dryrun(card: str, proc, log: Path, out_dir: Path):
     return real_cells
 
 
+# Phase 13: the port's invariant checkers on the card.
+ANALYSIS_TIMEOUT_S = 240
+
+
+def zero_launch_counts() -> None:
+    kernel_module("fw_round").rounds = 0
+    for name in ("minplus", "fw_block", "row_close"):
+        counts = kernel_module(name).launches
+        counts.update(dict.fromkeys(counts, 0))
+
+
+def drive_analysis(card: str, h16: torch.Tensor):
+    """Phase 13.  (a) ``python -m repro_torch.analysis --json --require-cuda``
+    in a subprocess: exit 0, no gating finding; the lattice through each of
+    the six CUDA kernels, each with a canary hit, every plan and kernel
+    mutant flagged with its kind and the controls clean (the checker's
+    stderr summary).  (b) Every plan mutant with a C form handed to its C
+    entry point is refused and leaves its output's canary intact.  (c)
+    ``solve`` at N = 16384, B = 512 with ``donate=True`` and with
+    ``donate=False``: the first returns the input's storage and rises by
+    less than one round's scratch, the second rises by one N^2 matrix more."""
+    from repro_torch.analysis.kernelcheck import mutants as kmut
+
+    import repro_torch
+
+    t_phase = time.perf_counter()
+    # 13a
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.analysis", "--json",
+                           "--require-cuda"], cwd=ROOT, capture_output=True, text=True,
+                          env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                          timeout=ANALYSIS_TIMEOUT_S)
+    analysis_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise SmokeFailure(f"13a: python -m repro_torch.analysis exited {proc.returncode}:\n"
+                           f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    report = json.loads(proc.stdout)
+    check(report["schema"] == 1 and set(report) == {"schema", "checks", "findings"},
+          f"13a: the --json schema changed: {sorted(report)}")
+    gating = [f for f in report["findings"] if not f["advisory"]]
+    check(not gating, f"13a: gating findings: {gating}")
+    per_check = {c: sum(f["check"] == c for f in report["findings"]) for c in report["checks"]}
+    check(len(report["checks"]) == 7, f"13a: {len(report['checks'])} checks ran, not 7")
+    line = next(ln for ln in proc.stderr.splitlines()
+                if ln.startswith("analyze: [kernel-grid] {"))
+    summary = json.loads(line.split("] ", 1)[1])
+    six = ("fw_round", "minplus", "minplus_argmin", "fw_block", "fw_block_pred", "row_close")
+    for k in six:
+        check(summary["cuda_cases"].get(k, 0) >= 1 and summary["canary_hits"].get(k, 0) >= 1
+              and summary["cuda_launches"].get(k, 0) >= 1,
+              f"13a: {k} ran {summary['cuda_cases'].get(k)} lattice cases on the card with "
+              f"{summary['canary_hits'].get(k)} canary hits, {summary['cuda_launches'].get(k)} "
+              "launches")
+    for name, got in list(summary["mutants"].items()) + list(summary["kernel_mutants"].items()):
+        want = got["expect"]
+        check((want is None and not got["found"]) or (want in got["found"]),
+              f"13a: {name} expected {want or 'clean'}, found {got['found']}")
+    print(f"phase 13a on {card}: python -m repro_torch.analysis --json --require-cuda exit 0 in "
+          f"{analysis_s:.1f} s; findings per check {json.dumps(per_check)}; lattice cases "
+          f"through each CUDA kernel {json.dumps(summary['cuda_cases'])} (CPU interpreter "
+          f"{json.dumps(summary['cpu_cases'])}), launches {json.dumps(summary['cuda_launches'])}, "
+          f"canary hits {json.dumps(summary['canary_hits'])}; plan mutants "
+          f"{json.dumps(summary['mutants'])}; kernel mutants "
+          f"{json.dumps(summary['kernel_mutants'])}")
+
+    # 13b
+    refused = {}
+    for m in kmut.mutant_cases():
+        if m.c_form is None:
+            continue
+        got = kmut.refused_on_card(m)
+        refused[m.case.name] = got
+        check(got["refused"] and got["intact"],
+              f"13b: {m.case.name}'s plan was not refused by its C entry point or its "
+              f"output's canary changed: {got}")
+    print(f"phase 13b on {card}: every plan mutant with a C form refused, canary intact: "
+          f"{json.dumps(refused)}")
+
+    # 13c
+    fr = kernel_module("fw_round")
+    n, b = h16.shape[0], 512
+    plan = fr.launch_plan(1, n, b)
+    scratch = sum(math.prod(s) * 4 for s in plan.scratch.values())
+    slack = 512 * len(plan.scratch)          # the caching allocator's 512-byte blocks
+    rise, runs = {}, {}
+    for donate in (True, False):
+        x = h16.clone()
+        ptr = x.data_ptr()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        r = repro_torch.solve(x, block_size=b, round_mode="fused", donate=donate,
+                              validate=False)
+        torch.cuda.synchronize()
+        runs[donate] = {"ms": 1e3 * (time.perf_counter() - t0), "launches": launch_counts()}
+        rise[donate] = torch.cuda.max_memory_allocated() - base
+        check(runs[donate]["launches"]["fw_round"] == n // b and
+              sum(runs[donate]["launches"].values()) == n // b,
+              f"13c: donate={donate} launched {runs[donate]['launches']}, not {n // b} rounds")
+        aliased = r.dist.data_ptr() == ptr
+        check(aliased == donate, f"13c: donate={donate}: the result "
+                                 f"{'does not alias' if donate else 'aliases'} the input")
+        check(same(r.dist, repro_torch.solve(h16, block_size=b).dist) if not donate else True,
+              "13c: the copying solve differs from the B = 512 solve")
+        del r, x
+    matrix = n * n * 4
+    check(rise[True] <= scratch + slack,
+          f"13c: donate=True rose {rise[True]} bytes, more than one round's scratch "
+          f"{scratch} (+{slack})")
+    check(matrix <= rise[False] <= matrix + scratch + slack,
+          f"13c: donate=False rose {rise[False]} bytes, not one {matrix}-byte matrix and at "
+          f"most one round's scratch")
+    print(f"phase 13c on {card}: solve N={n} B={b}: donate=True returns the input's storage, "
+          f"max_memory_allocated rose {rise[True]} bytes ({rise[True] / 2 ** 20:.2f} MiB; one "
+          f"round's scratch {scratch} bytes = {scratch / 2 ** 20:.2f} MiB), "
+          f"{runs[True]['ms']:.1f} ms; donate=False a new tensor, rose {rise[False]} bytes "
+          f"({rise[False] / 2 ** 30:.4f} GiB; the N^2 matrix {matrix / 2 ** 30:.0f} GiB), "
+          f"{runs[False]['ms']:.1f} ms; launches {json.dumps(runs[True]['launches'])}")
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase 13 on {card}: {phase_s:.1f} s")
+    return {"analysis_s": analysis_s, "per_check": per_check, "summary": summary,
+            "refused": refused, "rise_bytes": {str(k): v for k, v in rise.items()},
+            "scratch_bytes": scratch, "phase_s": phase_s}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3409,8 +3536,8 @@ def run(scratch: Path) -> int:
               f"the plain pred solve on the card")
     del h8
     t0 = time.perf_counter()
-    h16 = repro_torch.generate_np(np.random.default_rng(0), 16384, rho=2.0).h
-    h16 = torch.from_numpy(h16).to(dev)
+    h16_np = repro_torch.generate_np(np.random.default_rng(0), 16384, rho=2.0).h
+    h16 = torch.from_numpy(h16_np).to(dev)
     print(f"N=16384 graph made and uploaded in {time.perf_counter() - t0:.1f} s")
     for b in (256, 512):
         fr.rounds = 0
@@ -3771,6 +3898,12 @@ def run(scratch: Path) -> int:
     # 12 (run here, before the kernels line). The dry run of every cell on
     # both production meshes, and real steps on a 1 x 1 mesh against it.
     drive_dryrun(card, dry_proc, dry_log, scratch / "dryrun")
+
+    elapsed("phase 13")
+    # 13 (run here, before the kernels line). The port's invariant checkers:
+    # the analysis CLI with the lattice through the CUDA kernels, the C entry
+    # points refusing defective plans, and the donation check at full size.
+    drive_analysis(card, torch.from_numpy(h16_np).to(dev))
 
     elapsed("the kernels line")
     print(json.dumps({"kernels": lines}))

@@ -69,7 +69,7 @@ def validate_cost_matrix(h, semiring: SemiringLike = "tropical") -> None:
     where it lies.  Syncs the device; pass ``validate=False`` to ``solve``
     on paths that guarantee clean inputs."""
     bad = torch.isnan(torch.as_tensor(h))
-    count = int(bad.sum())
+    count = int(bad.sum())  # repro: allow-host-sync  NaN check before dispatch (JAX: apsp.py:86)
     if count:
         idx = tuple(int(x) for x in torch.nonzero(bad)[0])
         sr = get_semiring(semiring)
@@ -100,11 +100,12 @@ def check_negative_cycles(
         live = torch.arange(diag.shape[-1], device=diag.device)[None, :] < torch.as_tensor(
             np.asarray(sizes), device=diag.device)[:, None]
         neg = neg & live
-    if bool(neg.any()):
+    if bool(neg.any()):  # repro: allow-host-sync  the post-solve contract (JAX: apsp.py:118)
         idx = tuple(int(x) for x in torch.nonzero(neg)[0])
+        worst = float(diag[neg].min())  # repro: allow-host-sync  the message, on the raise path
         raise NegativeCycleError(
             f"negative cycle detected: solved diagonal entry {idx} is "
-            f"{float(diag[neg].min()):g} < 0, so tropical distances are unbounded "
+            f"{worst:g} < 0, so tropical distances are unbounded "
             "below.  Remove the cycle or pass validate=False to skip this "
             "check (the returned matrix would be meaningless)."
         )
@@ -206,6 +207,20 @@ def _check_method(method: str) -> None:
         raise ValueError(f"unknown APSP method {method!r}; have {sorted(METHODS)}")
 
 
+def _fresh(x: torch.Tensor, h) -> bool:
+    """Whether ``x`` is a copy this call made of ``h``, which the solve may
+    overwrite: not ``h`` itself nor its memory (``torch.as_tensor`` of a
+    float32 numpy array on the CPU shares the array's)."""
+    if x is h:
+        return False
+    if isinstance(h, torch.Tensor):
+        return x.untyped_storage().data_ptr() != h.untyped_storage().data_ptr()
+    if isinstance(h, np.ndarray) and x.device.type == "cpu":
+        base = h.__array_interface__["data"][0]
+        return not base <= x.data_ptr() < base + max(h.nbytes, 1)
+    return True
+
+
 def solve(
     h,
     *,
@@ -252,7 +267,7 @@ def solve(
     if validate:
         validate_cost_matrix(x, sr)
     if donate is None:
-        donate = x is not h               # fresh copy -> safe to overwrite
+        donate = _fresh(x, h)             # fresh copy -> safe to overwrite
     dist, pred = METHODS[method](x, with_pred, semiring=sr, donate=donate, **kwargs)
     if validate:
         check_negative_cycles(dist, sr)
@@ -321,7 +336,8 @@ def pad_batch(
     n = int(max(m.shape[0] for m in mats)) if n_max is None else int(n_max)
     if any(m.shape[0] > n for m in mats):
         raise ValueError(f"n_max={n} smaller than largest graph")
-    out = sr.eye(n, torch.float32, device).expand(len(mats), n, n).clone()
+    # The fresh padded stack, one copy (JAX: np.full, apsp.py:338).
+    out = sr.eye(n, torch.float32, device).expand(len(mats), n, n).clone()  # lint: allow-copy  stack
     for i, m in enumerate(mats):
         k = m.shape[0]
         if k:
@@ -368,7 +384,8 @@ def _solve_bucketed(
     out; ``dtype`` casts each bucket's stack and the result frame."""
     g = len(mats)
     out_dtype = torch.float32 if dtype is None else dtype
-    dist = semiring.eye(n, out_dtype, device).expand(g, n, n).clone()
+    # The result frame of the buckets (JAX: np.full, apsp.py:397).
+    dist = semiring.eye(n, out_dtype, device).expand(g, n, n).clone()  # lint: allow-copy  frame
     pred = None
     if with_pred:
         idx = torch.arange(n, dtype=torch.int32, device=device)
@@ -465,7 +482,7 @@ def solve_batch(
     if dtype is not None:
         stack = stack.to(dtype)
     if donate is None:
-        donate = stack is not hs          # fresh packed stack -> overwrite it
+        donate = _fresh(stack, hs)        # fresh packed stack -> overwrite it
     dist, pred = _solve_stack(stack, with_pred, method, semiring=semiring, donate=donate,
                               **kwargs)
     if validate:

@@ -13,10 +13,14 @@ written once a round.  All three stages are one ``kernels.ops.fw_round``
 call; the loop over the n/B pivots is a plain Python loop.
 
 Divergence from the JAX package — donation.  JAX's ``donate=True`` deletes
-the caller's buffer, so reads after the call raise.  Torch cannot delete a
-buffer: here ``donate=True`` means the caller's tensor may be overwritten
-(the CUDA kernel updates the state in place), and ``donate=False`` copies it
-first.  Nothing checks for reads of a donated tensor.
+the caller's buffer, so reads after the call raise, and the output takes
+its place.  Torch cannot delete a buffer: here ``donate=True`` means the
+result lies in the caller's storage (the CUDA kernel's fused round updates
+the state in place; a round that writes new tensors, the plain version, the
+split and pred rounds, has its result copied back at the end), and
+``donate=False`` leaves the caller's tensor as it was.  Reads of a donated
+name and the aliasing are checked by ``repro_torch.analysis``'s
+``donation`` check.
 
 ``round_mode="split"`` keeps the legacy round of four dispatches:
 the pivot closure (``ops.fw_block``), the row panel A* ⊗ D_t*, the column
@@ -141,9 +145,10 @@ def blocked_fw(
 
     ``block_size`` is the tile edge B; the matrix is padded to a multiple
     of B with unreachable phantom nodes (semantically inert).  A bf16 ``h``
-    selects the mixed-precision round (tropical only).  ``donate=True`` lets
-    the solve overwrite ``h``.  Returns ``(dist, pred)``, ``pred`` an int32
-    tensor on ``h``'s device when ``with_pred``, else None.
+    selects the mixed-precision round (tropical only).  ``donate=True``
+    returns ``dist`` in ``h``'s storage (``h`` is overwritten with it).
+    Returns ``(dist, pred)``, ``pred`` an int32 tensor on ``h``'s device
+    when ``with_pred``, else None.
     """
     ops = _ops()
     sr = get_semiring(semiring)
@@ -155,12 +160,14 @@ def blocked_fw(
         if round_mode == "split":
             for t in range(nblk):
                 d = _split_round(d, t * b, b, sr)
-            return unpad(d, n), None
-        if d is h:   # the fused round updates d in place
-            d = h.contiguous() if donate else h.clone(memory_format=torch.contiguous_format)
+            return _donated(h, unpad(d, n), donate), None
+        if d is h and not donate:   # the fused round updates d in place: keep the caller's
+            d = h.clone(memory_format=torch.contiguous_format)  # lint: allow-copy  donate=False
+        elif d is h:
+            d = h.contiguous()
         for t in range(nblk):
             d = ops.fw_round(d, t * b, block_size=b, semiring=sr)
-        return unpad(d, n), None
+        return _donated(h, unpad(d, n), donate), None
 
     p = pad_pred_to_multiple(init_pred(h, sr), b)
     for t in range(nblk):
@@ -168,7 +175,17 @@ def blocked_fw(
             d, p = ops.fw_round_pred(d, p, t * b, block_size=b, semiring=sr)
         else:
             d, p = _split_round_pred(d, p, t * b, b, sr)
-    return unpad(d, n), unpad(p, n)
+    return _donated(h, unpad(d, n), donate), unpad(p, n)
+
+
+def _donated(h: torch.Tensor, dist: torch.Tensor, donate: bool) -> torch.Tensor:
+    """``dist``, in ``h``'s storage when ``donate``: a result that a round
+    wrote into new tensors is copied back into ``h`` (one N^2 copy; the
+    fused round on the card wrote ``h`` itself and copies nothing)."""
+    if donate and dist.untyped_storage().data_ptr() != h.untyped_storage().data_ptr():
+        h.copy_(dist)
+        return h
+    return dist
 
 
 def blocked_fw_batch(

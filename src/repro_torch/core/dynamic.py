@@ -56,7 +56,7 @@ import json
 import os
 import threading
 from functools import partial
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -188,7 +188,7 @@ class UpdateJournal:
                     continue
                 try:
                     out.append(json.loads(line))
-                except ValueError:  # a torn tail from a crash mid-append was never acked
+                except ValueError:  # repro: allow-except-swallow  torn tail from a crash mid-append was never acked to a client
                     break
         return out
 
@@ -222,10 +222,11 @@ class UpdateJournal:
 
 def _moved(sr: Semiring, z: torch.Tensor, d: torch.Tensor) -> bool:
     """Did any entry strictly improve?  The one device sync of a pass."""
-    return bool(sr.better(z, d).any())
+    return bool(sr.better(z, d).any())  # repro: allow-host-sync  fixpoint test (JAX: :265)
 
 
-def _rank_k_fixpoint(dist, pred, u, v, w, *, semiring, with_pred, max_passes):
+def _rank_k_fixpoint(dist, pred, u, v, w, *, semiring, with_pred, max_passes
+                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor], int]:
     """Iterate the fused rank-k relaxation to fixpoint (early exit)."""
     from repro_torch.kernels import ops as kops
 
@@ -238,7 +239,8 @@ def _rank_k_fixpoint(dist, pred, u, v, w, *, semiring, with_pred, max_passes):
     return d, p, passes
 
 
-def _rank_k_fixpoint_batch(dist, pred, u, v, w, *, semiring, with_pred, max_passes):
+def _rank_k_fixpoint_batch(dist, pred, u, v, w, *, semiring, with_pred, max_passes
+                           ) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor, int]:
     """The rank-k fixpoint over a (G, n, n) stack with (G, k) edges — the
     pool's batched drain.  All graphs share the loop, which runs until every
     graph is at its fixpoint (converged graphs ride the extra passes as
@@ -251,9 +253,10 @@ def _rank_k_fixpoint_batch(dist, pred, u, v, w, *, semiring, with_pred, max_pass
     d, p, passes = dist, pred, 0
     moved = torch.ones(g, dtype=torch.bool)
     ever = torch.zeros(g, dtype=torch.bool)
-    while bool(moved.any()) and passes < max_passes:
+    while bool(moved.any()) and passes < max_passes:  # repro: allow-host-sync  host flags
         z, pz = kops.rank_k_update(d, u, v, w, pred=p if with_pred else None, semiring=sr)
-        moved = sr.better(z, d).flatten(1).any(dim=1).cpu()
+        # The per-graph fixpoint flags, read once a pass (JAX: the while_loop at :309).
+        moved = sr.better(z, d).flatten(1).any(dim=1).cpu()  # repro: allow-host-sync  flags
         ever |= moved
         d, p, passes = z, (pz if with_pred else p), passes + 1
     return d, p, ever, passes
@@ -419,7 +422,7 @@ class DynamicAPSP:
     @property
     def h(self) -> np.ndarray:
         """Current cost matrix (a copy — the engine owns its state)."""
-        return self._h.copy()
+        return self._h.copy()                 # lint: allow-copy (host-side, owned)
 
     @property
     def dist(self) -> torch.Tensor:
@@ -501,7 +504,7 @@ class DynamicAPSP:
         return {
             "dist": self._dist.to("cpu", copy=True),
             "pred": None if self._pred is None else self._pred.to("cpu", copy=True),
-            "h": self._h.copy(),
+            "h": self._h.copy(),                     # lint: allow-copy (host-side, owned)
             "version": self._version,
         }
 
@@ -729,7 +732,8 @@ class DynamicAPSP:
         # the float32 mean of the mask as the JAX engine's jnp.mean gives it:
         # XLA divides by the constant n * n as a product with its float32
         # reciprocal, which can differ from the quotient in the last bit
-        frac = float(np.float32(int(affected.sum()))
+        # The affected fraction picks the path on the host (JAX: float(jnp.mean), :857).
+        frac = float(np.float32(int(affected.sum()))  # repro: allow-host-sync  path choice
                      * (np.float32(1.0) / np.float32(affected.numel())))
         info["affected_frac"] = frac
         if frac > self._threshold:
@@ -904,7 +908,7 @@ def apply_updates_batched(engines, batches):
             eng._commit(d[j], p[j] if with_pred else None)
             eng.stats["rank_k"] += 1
             eng.stats["rank_k_passes"] += n_passes
-            if bool(ever[j]):
+            if bool(ever[j]):  # repro: allow-host-sync  ever was read back once a pass
                 eng._version += 1
             infos[i] = {
                 "path": "rank_k", "n_updates": n_updates, "k_padded": kb,

@@ -53,8 +53,8 @@ def init_pred(h: torch.Tensor, semiring: SemiringLike = "tropical") -> torch.Ten
     sr = get_semiring(semiring)
     n = h.shape[-1]
     rows = torch.arange(n, dtype=torch.int32, device=h.device)
-    p = torch.where(sr.is_zero(h), torch.tensor(-1, dtype=torch.int32, device=h.device),
-                    rows[:, None].expand(n, n))
+    none = torch.tensor(-1, dtype=torch.int32, device=h.device)  # lint: allow-copy  0-d
+    p = torch.where(sr.is_zero(h), none, rows[:, None].expand(n, n))
     p[..., rows, rows] = rows
     return p
 
@@ -113,7 +113,7 @@ def fw_squaring_early_exit(
     d, it, changed = h, 0, True
     while changed and it < limit:
         z = ops.minplus(d, d, d, semiring=sr)
-        changed = bool(sr.better(z, d).any())
+        changed = bool(sr.better(z, d).any())  # repro: allow-host-sync  early exit (JAX: :169)
         d, it = z, it + 1
     return d, it
 

@@ -39,8 +39,10 @@ __all__ = [
 def _host(a) -> np.ndarray:
     """A host array of a tensor (bf16 as float32) or array."""
     if isinstance(a, torch.Tensor):
-        a = a.detach().cpu()
-        return (a.float() if a.dtype == torch.bfloat16 else a).numpy()
+        # The engine's host copy of an update's ids and weights (JAX: np.asarray).
+        a = a.detach().cpu()  # repro: allow-host-sync  host bookkeeping
+        a = a.float() if a.dtype == torch.bfloat16 else a
+        return a.numpy()  # repro: allow-host-sync  host bookkeeping
     return np.asarray(a)
 
 
@@ -77,8 +79,8 @@ def reconstruct_path_device(
     as its contract says."""
     dev = pred.device
     row = pred[i].long()
-    start = torch.tensor(i, device=dev)
-    cur = torch.tensor(j, device=dev)
+    start = torch.tensor(i, device=dev)   # lint: allow-copy  0-d node id
+    cur = torch.tensor(j, device=dev)     # lint: allow-copy  0-d node id
     hops = torch.zeros((), dtype=torch.long, device=dev)
     back = torch.full((max_len,), -1, dtype=torch.long, device=dev)   # j, pred(j), ...
     for s in range(max_len):
@@ -175,12 +177,14 @@ def spd_features(h: torch.Tensor, landmarks, *, cap: float = 1e4) -> torch.Tenso
     from repro_torch.kernels import ops
 
     n = h.shape[0]
+    # The ids are checked on the host before any indexing (ROADMAP: out-of-range
+    # ids raise where JAX clamps): one read of L ids a call, not a hop.
     if isinstance(landmarks, torch.Tensor):
-        landmarks = landmarks.detach().cpu()
+        landmarks = landmarks.detach().cpu()  # repro: allow-host-sync  landmark ids
     else:
-        landmarks = torch.from_numpy(np.asarray(landmarks))
+        landmarks = torch.from_numpy(np.asarray(landmarks))  # repro: allow-host-sync  ids
     lm = landmarks.to(dtype=torch.long)
-    if bool(((lm < -n) | (lm >= n)).any()):
+    if bool(((lm < -n) | (lm >= n)).any()):  # repro: allow-host-sync  landmark range check
         raise IndexError(f"spd_features: a landmark id lies outside [{-n}, {n})")
     lm = torch.where(lm < 0, lm + n, lm).to(h.device)
     d = h[lm].contiguous()                   # (L, n) 1-hop seed distances
@@ -191,8 +195,9 @@ def spd_features(h: torch.Tensor, landmarks, *, cap: float = 1e4) -> torch.Tenso
         y = ring_rows(h)
     for _ in range(n - 1):
         z = ops.minplus(d, y, d)             # fused relax step (one more hop)
-        changed = bool((z < d).any())
+        changed = bool((z < d).any())  # repro: allow-host-sync  one read a hop (JAX: :151)
         d = z
         if not changed:
             break
-    return torch.minimum(d, torch.tensor(cap, dtype=d.dtype, device=d.device)).T
+    top = torch.tensor(cap, dtype=d.dtype, device=d.device)   # lint: allow-copy  0-d cap
+    return torch.minimum(d, top).T  # lint: allow-unfused  # repro: allow-semiring-hardcode tropical-only SPD feature cap

@@ -79,8 +79,10 @@ def _pad_base(d: torch.Tensor, target: int, fill, diag) -> torch.Tensor:
     out = torch.full((target, target), fill, dtype=d.dtype, device=d.device)
     out[:n, :n] = d
     idx = torch.arange(n, target, device=d.device)
-    out[idx, idx] = idx.to(d.dtype) if diag is None else torch.tensor(diag, dtype=d.dtype,
-                                                                      device=d.device)
+    if diag is None:
+        out[idx, idx] = idx.to(d.dtype)
+    else:
+        out[idx, idx] = torch.tensor(diag, dtype=d.dtype, device=d.device)  # lint: allow-copy  0-d
     return out
 
 

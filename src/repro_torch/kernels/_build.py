@@ -34,6 +34,19 @@ NVCC_FLAGS = [
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _functions: Dict[Tuple[str, str], Any] = {}
+# Sources outside csrc/ (name -> path of its .cu), built and loaded the same
+# way: the grid verifier's seeded-defect kernels.
+_extra: Dict[str, Path] = {}
+
+
+def register_source(name: str, path) -> None:
+    """Build ``path`` (a .cu file with a plain C interface) under ``name``
+    with the kernels' flags, at first use like the others."""
+    _extra[name] = Path(path)
+
+
+def _source(name: str) -> Path:
+    return _extra.get(name, CSRC / f"{name}.cu")
 
 
 def _nvcc() -> str:
@@ -45,7 +58,7 @@ def _nvcc() -> str:
 
 def _digest(name: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+    for p in sorted(CSRC.glob("*.cuh")) + [_source(name)]:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
@@ -72,14 +85,14 @@ def build(names) -> None:
         if lib.exists():
             continue
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_source(name))]
         procs[name] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failed = []
     for name, (tmp, proc) in procs.items():
         out, _ = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"nvcc failed on csrc/{name}.cu:\n{out}")
+            failed.append(f"nvcc failed on {_source(name)}:\n{out}")
             continue
         lib, log = paths(name)
         log.write_text(out)

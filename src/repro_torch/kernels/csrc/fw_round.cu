@@ -50,9 +50,12 @@
 // G*(B*B + B*Bp + 3*B*Np) floats (24.5 MiB at N = 8192, B = 256), against
 // the second N x N buffer (256 MiB) that ping-pong would take.
 //
-// The wrapper (kernels/fw_round.py) checks shapes, computes the closure's
-// launch plan and Np, and allocates the scratch; everything launches on the
-// caller's stream, and each launch's error is returned to it.
+// The wrapper (kernels/fw_round.py) checks shapes, computes the round's
+// launch plan (launch_plan: the closure's plan, Np and Bp, the grids of
+// stages 2-4, the ring's tile and shared bytes), which fw_round_launch
+// checks against its own (round_plan_is, close_plan_ok, grid_plan_ok) and
+// refuses if it differs, and allocates the scratch; everything launches on
+// the caller's stream, and each launch's error is returned to it.
 #include <cuda_runtime.h>
 
 #include "fw_closure.cuh"
@@ -187,12 +190,30 @@ struct ClosePlan {
   int cluster, rows, threads, shared;
 };
 
+// The launch plan of grids 2-4 that kernels/fw_round.py (launch_plan)
+// computes and passes in: the scratches' row pitches np and bp, fw_panels'
+// grid (px, py), fw_colpanel's (cx, cy) and fw_update's (ux, uy) (grid z is
+// G for all three), the ring's tile (um x un outputs, uk-deep slices),
+// threads and dynamic shared bytes a ring CTA.
+struct RoundPlan {
+  int np, bp, px, py, cx, cy, ux, uy, um, un, uk, threads, smem;
+};
+
+// The plan this source launches for (g, n, b); any other is refused.
+inline bool round_plan_is(const RoundPlan& P, int g, int n, int b) {
+  return P.np == (n + 31) / 32 * 32 && P.bp == (b + 31) / 32 * 32 && P.px == (n + 31) / 32 &&
+         P.py == (b + 31) / 32 && P.cx == (n + UN - 1) / UN && P.cy == (b + UM - 1) / UM &&
+         P.ux == (n + UN - 1) / UN && P.uy == (n + UM - 1) / UM && P.um == UM && P.un == UN &&
+         P.uk == UK && P.threads == Ring::kThreads && P.smem == Ring::kSmemBytes &&
+         P.py <= 65535 && P.cy <= 65535 && P.uy <= 65535 && g <= 65535 && P.smem <= 232448;
+}
+
 struct Scratch {
   float *apiv, *colt, *rowp, *coln, *apv;
 };
 
 template <int SR, class T>
-cudaError_t launch_round(T* d, const Scratch& w, int g, int n, int b, int o, int np, int bp,
+cudaError_t launch_round(T* d, const Scratch& w, int g, int n, int b, int o, const RoundPlan& P,
                          ClosePlan plan, int* lines, cudaStream_t s) {
   float* apiv = w.apiv;
   cudaError_t err =
@@ -202,34 +223,32 @@ cudaError_t launch_round(T* d, const Scratch& w, int g, int n, int b, int o, int
           : launch_clusters(fw_closure<SR, T>, g, plan.cluster, plan.threads, plan.shared, s,
                             static_cast<const T*>(d), apiv, n, b, o, plan.rows);
   if (err != cudaSuccess) return err;
-  fw_panels<T><<<dim3((n + 31) / 32, (b + 31) / 32, g), dim3(32, 8), 0, s>>>(
-      d, apiv, w.coln, w.rowp, w.apv, n, b, o, np, bp);
+  fw_panels<T><<<dim3(P.px, P.py, g), dim3(32, 8), 0, s>>>(d, apiv, w.coln, w.rowp, w.apv, n,
+                                                            b, o, P.np, P.bp);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   err = cudaFuncSetAttribute(fw_colpanel<SR, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             Ring::kSmemBytes);
+                             P.smem);
   if (err != cudaSuccess) return err;
-  const dim3 panel((n + UN - 1) / UN, (b + UM - 1) / UM, g);
-  fw_colpanel<SR, T><<<panel, Ring::kThreads, Ring::kSmemBytes, s>>>(w.apv, w.coln, w.colt, n,
-                                                                     b, np, bp);
+  fw_colpanel<SR, T><<<dim3(P.cx, P.cy, g), P.threads, P.smem, s>>>(w.apv, w.coln, w.colt, n,
+                                                                      b, P.np, P.bp);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   err = cudaFuncSetAttribute(fw_update<SR, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             Ring::kSmemBytes);
+                             P.smem);
   if (err != cudaSuccess) return err;
-  const dim3 update((n + UN - 1) / UN, (n + UM - 1) / UM, g);
-  fw_update<SR, T><<<update, Ring::kThreads, Ring::kSmemBytes, s>>>(d, w.colt, w.rowp, n, b,
-                                                                    np);
+  fw_update<SR, T><<<dim3(P.ux, P.uy, g), P.threads, P.smem, s>>>(d, w.colt, w.rowp, n, b,
+                                                                    P.np);
   return cudaGetLastError();
 }
 
 template <class T>
 cudaError_t dispatch(int semiring, void* d, const Scratch& w, int g, int n, int b, int o,
-                     int np, int bp, ClosePlan plan, int* li, cudaStream_t s) {
+                     const RoundPlan& P, ClosePlan plan, int* li, cudaStream_t s) {
   T* dd = static_cast<T*>(d);
   switch (semiring) {
-    case 0: return launch_round<0, T>(dd, w, g, n, b, o, np, bp, plan, li, s);
-    case 1: return launch_round<1, T>(dd, w, g, n, b, o, np, bp, plan, li, s);
-    case 2: return launch_round<2, T>(dd, w, g, n, b, o, np, bp, plan, li, s);
-    case 3: return launch_round<3, T>(dd, w, g, n, b, o, np, bp, plan, li, s);
+    case 0: return launch_round<0, T>(dd, w, g, n, b, o, P, plan, li, s);
+    case 1: return launch_round<1, T>(dd, w, g, n, b, o, P, plan, li, s);
+    case 2: return launch_round<2, T>(dd, w, g, n, b, o, P, plan, li, s);
+    case 3: return launch_round<3, T>(dd, w, g, n, b, o, P, plan, li, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -238,30 +257,34 @@ cudaError_t dispatch(int semiring, void* d, const Scratch& w, int g, int n, int 
 
 // C interface for ctypes.  d: (g, n, n) contiguous storage, float32
 // (bf16 == 0) or bf16 (bf16 == 1); apiv (g, b, b), colt, rowp and coln
-// (g, b, np), and apv (g, b, bp) are float32 scratch, np a multiple of 32
-// that is >= n, bp one that is >= b.  The
-// closure's launch plan (cluster, rows, threads, shared) comes from the
-// wrapper and is checked here: the cluster closure's (close_plan_ok) for
-// b <= 256, the grid closure's (grid_plan_ok) above, which also takes
-// `lines`, int32 scratch of grid_lines_words(b, g, false) words (null for
-// b <= 256).  Returns a cudaError_t.
+// (g, b, plan.np), and apv (g, b, plan.bp) are float32 scratch.  The round's
+// plan (kernels/fw_round.py launch_plan, passed by address: the pitches, the grids of
+// fw_panels, fw_colpanel and fw_update, the ring's tile, threads and shared
+// bytes) must be the one round_plan_is describes.  The closure's launch
+// plan (cluster, rows, threads, shared) is checked too: the cluster
+// closure's (close_plan_ok) for b <= 256, the grid closure's
+// (grid_plan_ok) above, which also takes `lines`, int32 scratch of
+// grid_lines_words(b, g, false) words (null for b <= 256).  A plan that
+// fails is refused before anything launches.  Returns a cudaError_t.
 extern "C" int fw_round_launch(int semiring, int bf16, void* d, void* apiv, void* colt,
                                void* rowp, void* coln, void* apv, int g, int n, int b, int o,
-                               int np, int bp, int cluster, int rows, int threads, int shared,
-                               void* lines, void* stream) {
+                               const repro_torch::RoundPlan* roundp, int cluster, int rows,
+                               int threads, int shared, void* lines, void* stream) {
   using namespace repro_torch;
+  if (!roundp) return cudaErrorInvalidValue;
+  const RoundPlan& round = *roundp;
   const bool plan_ok = b <= kCloseMaxB ? close_plan_ok(b, false, cluster, rows, threads, shared)
                                        : grid_plan_ok(b, cluster, rows, threads, shared) && lines;
-  if (g < 1 || n < 1 || b < 1 || n % b != 0 || o < 0 || o % b != 0 || o >= n || np < n ||
-      np % 32 != 0 || bp < b || bp % 32 != 0 || !plan_ok)
+  if (g < 1 || n < 1 || b < 1 || n % b != 0 || o < 0 || o % b != 0 || o >= n || !plan_ok ||
+      !round_plan_is(round, g, n, b))
     return cudaErrorInvalidValue;
   const ClosePlan plan{cluster, rows, threads, shared};
   const Scratch w{static_cast<float*>(apiv), static_cast<float*>(colt), static_cast<float*>(rowp),
                   static_cast<float*>(coln), static_cast<float*>(apv)};
   int* li = static_cast<int*>(lines);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? dispatch<__nv_bfloat16>(semiring, d, w, g, n, b, o, np, bp, plan, li, s)
-              : dispatch<float>(semiring, d, w, g, n, b, o, np, bp, plan, li, s);
+  return bf16 ? dispatch<__nv_bfloat16>(semiring, d, w, g, n, b, o, round, plan, li, s)
+              : dispatch<float>(semiring, d, w, g, n, b, o, round, plan, li, s);
 }
 
 // The cluster size the latest fw_closure launch ran on, read from the card

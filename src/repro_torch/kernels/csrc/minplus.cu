@@ -58,9 +58,12 @@
 // accumulator registers, 255 in all, two CTAs an SM) ran slower, most of
 // all with the pred epilogue (PERF.md).
 //
-// The wrapper (kernels/minplus.py) checks shapes, strides and alignment and
-// allocates the outputs and the k-major scratch; the kernels launch on the
-// caller's stream and the error is returned.
+// The wrapper (kernels/minplus.py) checks shapes, strides and alignment,
+// computes the launch plan (launch_plan: tile, both grids, X^T's pitch, the
+// ring's column limit, shared bytes), which minplus_launch checks against
+// its own (plan_is) and refuses if it differs, and allocates the outputs and
+// the k-major scratch; the kernels launch on the caller's stream and the
+// error is returned.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -205,28 +208,49 @@ cudaError_t run(Kernel kernel, int threads, int smem, dim3 grid, cudaStream_t s,
   return cudaGetLastError();
 }
 
-template <int SR, int MODE, bool ACC>
-cudaError_t launch(const Args& A, int g, cudaStream_t s) {
+// The launch plan that kernels/minplus.py (launch_plan) computes and passes
+// in: the product's tile (bm x bn outputs, bk-deep slices) and grid
+// (gx, gy, gz), kmajor's grid (kx, ky, kz; zero when k == 0), X^T's pitch mp,
+// the ring's column limit ny of y, threads and dynamic shared bytes a CTA.
+struct ProductPlan {
+  int bm, bn, bk, gx, gy, gz, kx, ky, kz, mp, threads, smem;
+  long long ny;
+};
+
+// The plan this source launches for mode and (g, m, k, n): what launch()
+// and minplus_launch() below run.  Any other plan is refused.
+template <int MODE>
+bool plan_is(const ProductPlan& P, int g, int m, int k, int n) {
   using C = Cfg<MODE != kValue>;
   using R = typename C::Ring;
-  const dim3 grid((A.n + C::BN - 1) / C::BN, (A.m + C::BM - 1) / C::BM, g);
+  const int mp = (m + 31) / 32 * 32;
+  return P.bm == C::BM && P.bn == C::BN && P.bk == C::BK && P.gx == (n + C::BN - 1) / C::BN &&
+         P.gy == (m + C::BM - 1) / C::BM && P.gz == g && P.mp == mp &&
+         P.kx == (k > 0 ? mp / 32 : 0) && P.ky == (k + 31) / 32 && P.kz == (k > 0 ? g : 0) &&
+         P.threads == R::kThreads && P.smem == R::kSmemBytes && P.gy <= 65535 && P.gz <= 65535 &&
+         P.ky <= 65535 && P.kz <= 65535 && P.smem <= 232448;
+}
+
+template <int SR, int MODE, bool ACC>
+cudaError_t launch(const Args& A, const ProductPlan& P, cudaStream_t s) {
+  const dim3 grid(P.gx, P.gy, P.gz);
   if constexpr (MODE == kValue)
-    return run(minplus<SR, ACC>, R::kThreads, R::kSmemBytes, grid, s, A);
+    return run(minplus<SR, ACC>, P.threads, P.smem, grid, s, A);
   else if constexpr (MODE == kArgmin)
-    return run(minplus_argmin<SR, ACC>, R::kThreads, R::kSmemBytes, grid, s, A);
+    return run(minplus_argmin<SR, ACC>, P.threads, P.smem, grid, s, A);
   else
-    return run(minplus_pred<SR, ACC>, R::kThreads, R::kSmemBytes, grid, s, A);
+    return run(minplus_pred<SR, ACC>, P.threads, P.smem, grid, s, A);
 }
 
 template <int SR>
-cudaError_t dispatch(int mode, bool acc, const Args& A, int g, cudaStream_t s) {
+cudaError_t dispatch(int mode, bool acc, const Args& A, const ProductPlan& P, cudaStream_t s) {
   switch (mode * 2 + (acc ? 1 : 0)) {
-    case 0: return launch<SR, kValue, false>(A, g, s);
-    case 1: return launch<SR, kValue, true>(A, g, s);
-    case 2: return launch<SR, kArgmin, false>(A, g, s);
-    case 3: return launch<SR, kArgmin, true>(A, g, s);
-    case 4: return launch<SR, kPred, false>(A, g, s);
-    case 5: return launch<SR, kPred, true>(A, g, s);
+    case 0: return launch<SR, kValue, false>(A, P, s);
+    case 1: return launch<SR, kValue, true>(A, P, s);
+    case 2: return launch<SR, kArgmin, false>(A, P, s);
+    case 3: return launch<SR, kArgmin, true>(A, P, s);
+    case 4: return launch<SR, kPred, false>(A, P, s);
+    case 5: return launch<SR, kPred, true>(A, P, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -241,27 +265,34 @@ bool aligned16(const View& v) {
 // k), y (g, k, n) and a (g, m, n) float32, px (g, m, k), py (g, k, n) and
 // pa (g, m, n) int32, each a View with unit column stride; a.p is null when
 // acc == 0, pa.p may be null, and x, y, xt, px and py may be null when
-// k == 0.  xt: float32 scratch of g * k * mp floats, mp = m rounded up to
-// 32.  y's rows are 16-byte aligned and read up to column ny (n <= ny <=
-// its row pitch, a multiple of 4).  z and out (K* or preds) (g, m, n)
-// contiguous.  Launches kmajor (when k > 0), then the product.  Returns a
-// cudaError_t.
+// k == 0.  xt: float32 scratch of g * k * plan.mp floats.  y's rows are
+// 16-byte aligned and read up to column plan.ny (n <= ny <= its row pitch,
+// a multiple of 4).  z and out (K* or preds) (g, m, n) contiguous.  The
+// plan (kernels/minplus.py launch_plan, passed by address) must be the one
+// plan_is describes;
+// any other is refused before anything launches.  Launches kmajor (when
+// k > 0), then the product.  Returns a cudaError_t.
 extern "C" int minplus_launch(int semiring, int mode, int acc, repro_torch::View x,
-                              void* xt, int mp, repro_torch::View y, long long ny,
-                              repro_torch::View a, void* z, void* out, repro_torch::View px,
-                              repro_torch::View py, repro_torch::View pa, int g, int m, int k,
-                              int n, int koff, int joff, void* stream) {
+                              void* xt, repro_torch::View y, repro_torch::View a, void* z,
+                              void* out, repro_torch::View px, repro_torch::View py,
+                              repro_torch::View pa, int g, int m, int k, int n, int koff,
+                              int joff, const repro_torch::ProductPlan* planp, void* stream) {
   using namespace repro_torch;
+  if (!planp) return cudaErrorInvalidValue;
+  const ProductPlan& plan = *planp;
   const bool witness = mode == kArgmin || mode == kPred;
+  const bool plan_ok = mode == kValue ? plan_is<kValue>(plan, g, m, k, n)
+                                      : plan_is<kArgmin>(plan, g, m, k, n);
+  const long long ny = plan.ny;
   if (g < 1 || g > 65535 || m < 1 || n < 1 || k < 0 || mode < 0 || mode > 2 || (acc && !a.p) ||
       !z || (witness && !out) ||
-      (k > 0 && (!x.p || !y.p || !xt || (mode == kPred && (!px.p || !py.p)))) ||
-      mp != (m + 31) / 32 * 32 || (m + 63) / 64 > 65535 || ny < n || ny % 4 != 0 ||
-      (k > 1 && ny > y.rs) || !aligned16(y) || reinterpret_cast<uintptr_t>(xt) % 16 != 0)
+      (k > 0 && (!x.p || !y.p || !xt || (mode == kPred && (!px.p || !py.p)))) || !plan_ok ||
+      ny < n || ny % 4 != 0 || (k > 1 && ny > y.rs) || !aligned16(y) ||
+      reinterpret_cast<uintptr_t>(xt) % 16 != 0)
     return cudaErrorInvalidValue;
   Args A{};
   A.xt = static_cast<const float*>(xt);
-  A.mp = mp;
+  A.mp = plan.mp;
   A.y = y;
   A.ny = ny;
   A.a = a;
@@ -277,16 +308,16 @@ extern "C" int minplus_launch(int semiring, int mode, int acc, repro_torch::View
   A.joff = joff;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (k > 0) {
-    kmajor<<<dim3(mp / 32, (k + 31) / 32, g), dim3(32, 8), 0, s>>>(x, static_cast<float*>(xt),
-                                                                   m, k, mp);
+    kmajor<<<dim3(plan.kx, plan.ky, plan.kz), dim3(32, 8), 0, s>>>(
+        x, static_cast<float*>(xt), m, k, plan.mp);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   switch (semiring) {
-    case 0: return dispatch<0>(mode, acc != 0, A, g, s);
-    case 1: return dispatch<1>(mode, acc != 0, A, g, s);
-    case 2: return dispatch<2>(mode, acc != 0, A, g, s);
-    case 3: return dispatch<3>(mode, acc != 0, A, g, s);
+    case 0: return dispatch<0>(mode, acc != 0, A, plan, s);
+    case 1: return dispatch<1>(mode, acc != 0, A, plan, s);
+    case 2: return dispatch<2>(mode, acc != 0, A, plan, s);
+    case 3: return dispatch<3>(mode, acc != 0, A, plan, s);
     default: return cudaErrorInvalidValue;
   }
 }

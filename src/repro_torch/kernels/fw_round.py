@@ -30,14 +30,18 @@ counter, if one runs (``roofline.op_cost.report_kernel``).
 kernel's round (four grids each: the closure, ``fw_panels``,
 ``fw_colpanel`` and ``fw_update``; the closure is the cluster closure
 ``fw_closure`` up to B = 256 and the grid closure ``fw_closure_grid``
-above).  The wrapper computes the closure's launch plan
-(``fw_block.closure_launch``) and the scratches (:func:`scratch_shapes`,
-rows of pitch :func:`pitch`).
+above).  The wrapper computes the round's launch plan (:func:`launch_plan`:
+the closure's plan ``fw_block.closure_launch``, the grids of the other
+three, the ring's tile, the scratches of :func:`scratch_shapes` in rows of
+pitch :func:`pitch`) and passes it to ``fw_round_launch``, which checks it
+against the plan it would launch and refuses any other.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -47,13 +51,18 @@ from repro_torch.roofline.kernels import fw_round_work
 
 from . import _counts
 from ._codes import semiring_code
-from .fw_block import MAX_BLOCK, closure_launch, fw_block_torch, grid_lines_words
+from .fw_block import MAX_BLOCK, ClosurePlan, closure_launch, fw_block_torch, grid_lines_words
 from .minplus import minplus_torch
 
 __all__ = ["fw_round", "fw_round_torch", "fw_round_cuda", "rounds", "pitch",
-           "scratch_shapes"]
+           "scratch_shapes", "RoundPlan", "launch_plan"]
 
 rounds = 0
+
+# The ring's tile of fw_colpanel and fw_update (csrc/fw_round.cu UM, UN,
+# UK, kStages): 64 x 128 outputs a CTA of 128 threads, k slices of 32,
+# three slots.
+TILE_ROWS, TILE_COLS, DEPTH, STAGES, THREADS = 64, 128, 32, 3, 128
 
 
 def pitch(n: int) -> int:
@@ -77,6 +86,65 @@ def scratch_shapes(g: int, n: int, b: int) -> dict:
     return shapes
 
 
+class RoundPlan(NamedTuple):
+    """Launch plan of one round (``csrc/fw_round.cu``) of G graphs of N
+    nodes at tile B: the closure's plan ``closure``
+    (``fw_block.closure_launch``); the scratches' row pitches ``np`` (N) and
+    ``bp`` (B); the grids of ``fw_panels`` (32 x 32 tiles over (N, B)),
+    ``fw_colpanel`` (``rows`` x ``cols`` ring tiles over col'^T's (B, N)) and
+    ``fw_update`` (ring tiles over (N, N)), grid z G; the ring's k slices of
+    ``depth``, ``threads`` and ``shared_bytes`` a ring CTA; the scratch
+    shapes (:func:`scratch_shapes`)."""
+
+    closure: ClosurePlan
+    np: int
+    bp: int
+    panels_grid: Tuple[int, int, int]
+    colpanel_grid: Tuple[int, int, int]
+    update_grid: Tuple[int, int, int]
+    rows: int
+    cols: int
+    depth: int
+    threads: int
+    shared_bytes: int
+    scratch: dict
+
+    def c_args(self) -> "_Plan":
+        return _Plan(self.np, self.bp, *self.panels_grid[:2], *self.colpanel_grid[:2],
+                     *self.update_grid[:2], self.rows, self.cols, self.depth, self.threads,
+                     self.shared_bytes)
+
+
+class _Plan(ctypes.Structure):
+    """``RoundPlan`` of ``csrc/fw_round.cu``."""
+
+    _fields_ = [(f, ctypes.c_int) for f in ("np", "bp", "px", "py", "cx", "cy", "ux", "uy",
+                                              "um", "un", "uk", "threads", "smem")]
+
+
+def launch_plan(g: int, n: int, b: int) -> RoundPlan:
+    """The plan the kernel runs for one round of G graphs of N nodes at
+    tile B (B divides N)."""
+    if g < 1 or b < 1 or n < b or n % b:
+        raise ValueError(f"a round takes G >= 1 and a tile B that divides N, got G={g} "
+                         f"N={n} B={b}")
+
+    def ring(rows: int, cols: int) -> Tuple[int, int, int]:
+        return (-(-cols // TILE_COLS), -(-rows // TILE_ROWS), g)
+
+    return RoundPlan(closure_launch(b), pitch(n), pitch(b), (-(-n // 32), -(-b // 32), g),
+                     ring(b, n), ring(n, n), TILE_ROWS, TILE_COLS, DEPTH, THREADS,
+                     STAGES * DEPTH * (TILE_ROWS + TILE_COLS) * 4, scratch_shapes(g, n, b))
+
+
+@functools.lru_cache(maxsize=256)
+def _cached_plan(g: int, n: int, b: int) -> Tuple[RoundPlan, _Plan]:
+    """The plan of (g, n, b) and its C struct, made once: a solve launches
+    n/B rounds of one shape."""
+    plan = launch_plan(g, n, b)
+    return plan, plan.c_args()
+
+
 def fw_round_torch(
     d: torch.Tensor, o: int, *, block_size: int, semiring: SemiringLike = "tropical"
 ) -> torch.Tensor:
@@ -96,9 +164,14 @@ def fw_round_cuda(
 ) -> torch.Tensor:
     """Launch the CUDA kernel's round on ``d``, in place; returns ``d`` (on
     ``meta``: launches nothing)."""
+    return _round(d, o, int(block_size), get_semiring(semiring))
+
+
+def _round(d: torch.Tensor, o: int, b: int, sr, plan: Optional[RoundPlan] = None) -> torch.Tensor:
+    """:func:`fw_round_cuda`'s body; ``plan`` replaces :func:`launch_plan`'s
+    (the grid verifier hands the C entry point defective plans, which it
+    must refuse)."""
     global rounds
-    sr = get_semiring(semiring)
-    b = int(block_size)
     if not (d.is_cuda or d.is_meta):
         raise ValueError(f"fw_round_cuda takes a CUDA (or meta) tensor, got one on {d.device}")
     if d.dtype not in (torch.float32, torch.bfloat16):
@@ -115,13 +188,13 @@ def fw_round_cuda(
     if o % b or not 0 <= o < n:
         raise ValueError(f"pivot offset {o} is not a block of N={n}, B={b}")
     code = semiring_code(sr, "fw_round")
-    shapes = scratch_shapes(g, n, b)
+    plan, c_plan = _cached_plan(g, n, b) if plan is None else (plan, plan.c_args())
+    shapes = plan.scratch
     f32 = dict(dtype=torch.float32, device=d.device)
     w = {k: torch.empty(shapes[k], **f32) for k in ("apiv", "colt", "rowp", "coln", "apv")}
     lines = (torch.empty(shapes["lines"], dtype=torch.int32, device=d.device)
              if "lines" in shapes else None)
-    report = dict(shape=f"G={g} N={n} B={b}", plan={"scratch": shapes,
-                                                    "closure": tuple(closure_launch(b))})
+    report = dict(shape=f"G={g} N={n} B={b}", plan=plan)
     work = fw_round_work(g, n, b, d.element_size())
     if d.is_meta:
         op_cost.report_kernel("fw_round", work, **report)
@@ -130,11 +203,12 @@ def fw_round_cuda(
 
     fn = _build.function("fw_round", "fw_round_launch",
                          [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6
-                         + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 2)
+                         + [ctypes.c_int] * 4 + [ctypes.POINTER(_Plan)] + [ctypes.c_int] * 4
+                         + [ctypes.c_void_p] * 2)
     stream = torch.cuda.current_stream(d.device).cuda_stream
     err = fn(code, int(d.dtype == torch.bfloat16), d.data_ptr(),
              *(w[k].data_ptr() for k in ("apiv", "colt", "rowp", "coln", "apv")), g, n, b, o,
-             shapes["colt"][-1], shapes["apv"][-1], *closure_launch(b),
+             ctypes.byref(c_plan), *plan.closure,
              None if lines is None else lines.data_ptr(), stream)
     if err:
         raise RuntimeError(f"fw_round kernel launch failed: cudaError_t {err}")

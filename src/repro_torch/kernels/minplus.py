@@ -44,17 +44,23 @@ f32 arithmetic, output in ``x``'s dtype.
   k-major copy of X (``kmajor``) and the product.  On ``meta`` tensors (the
   dry run) they allocate the same outputs and scratch and launch nothing.
 
+Each launch runs the plan of :func:`launch_plan` (the tile, both grids,
+X^T's pitch, the ring's column limit ``ny``, the shared bytes), which the
+wrapper passes to ``minplus_launch``; the C entry point checks it against
+the plan it would launch (``plan_is``) and refuses any other.
+
 ``launches`` counts the calls of each wrapper that launched its kernel.
 Each call, launched or on ``meta``, reports its work
-(``roofline.kernels.minplus_work``) to the dry run's counter, if one runs
-(``roofline.op_cost.report_kernel``).
+(``roofline.kernels.minplus_work``) and plan to the dry run's counter, if
+one runs (``roofline.op_cost.report_kernel``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -75,6 +81,9 @@ __all__ = [
     "minplus_argmin_cuda",
     "minplus_pred_cuda",
     "launches",
+    "MODES",
+    "ProductPlan",
+    "launch_plan",
 ]
 
 # Elements of the (..., rows, k chunk, N) broadcast the plain version builds
@@ -82,6 +91,63 @@ __all__ = [
 _FOLD_BUDGET = 1 << 24
 
 launches = {"minplus": 0, "minplus_argmin": 0, "minplus_pred": 0}
+
+# The kernel's modes, in the order of ``minplus_launch``'s mode codes.
+MODES = ("minplus", "minplus_argmin", "minplus_pred")
+# The tiles of csrc/minplus.cu (Cfg): 64 rows by 128 columns a CTA for
+# values (8 x 8 outputs a thread), 64 by 64 with a witness (8 x 4), k in
+# slices of 32 through a ring of 3 slots; 128 threads a CTA.
+TILE_ROWS, DEPTH, STAGES, THREADS = 64, 32, 3, 128
+TILE_COLS = {False: 128, True: 64}
+
+
+class ProductPlan(NamedTuple):
+    """Launch plan of one product (``csrc/minplus.cu``): the product grid
+    ``grid`` = (column tiles, row tiles, G) of ``rows`` x ``cols`` outputs a
+    CTA, k folded in slices of ``depth``; the k-major copy's grid
+    ``kmajor_grid`` = (xt_pitch / 32, k / 32, G) of 32 x 32 tiles ((0, 0, 0)
+    when k == 0) into an f32 (G, k, ``xt_pitch``) scratch; y's rows read up
+    to column ``ny``; ``threads`` and ``shared_bytes`` of dynamic shared
+    memory a product CTA."""
+
+    rows: int
+    cols: int
+    depth: int
+    grid: Tuple[int, int, int]
+    kmajor_grid: Tuple[int, int, int]
+    xt_pitch: int
+    ny: int
+    threads: int
+    shared_bytes: int
+
+    def c_args(self) -> "_Plan":
+        return _c_plan(self)
+
+
+@functools.lru_cache(maxsize=1024)
+def _c_plan(plan: ProductPlan) -> "_Plan":
+    """The plan as ``minplus_launch`` takes it (by address), made once a plan."""
+    return _Plan(plan.rows, plan.cols, plan.depth, *plan.grid, *plan.kmajor_grid,
+                 plan.xt_pitch, plan.threads, plan.shared_bytes, plan.ny)
+
+
+@functools.lru_cache(maxsize=1024)
+def launch_plan(g: int, m: int, k: int, n: int, mode: str = "minplus",
+                ny: Optional[int] = None) -> ProductPlan:
+    """The plan the kernel runs for a (G, M, K) x (G, K, N) product in
+    ``mode`` (one of :data:`MODES`), y's rows read up to column ``ny``
+    (default N rounded up to 4, the limit of rows that lie ready,
+    :func:`_ring_limit`)."""
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    if g < 1 or m < 1 or n < 1 or k < 0:
+        raise ValueError(f"a product takes G, M, N >= 1 and K >= 0, got {g}, {m}, {k}, {n}")
+    bn = TILE_COLS[mode != "minplus"]
+    mp = -(-m // 32) * 32
+    kgrid = (mp // 32, -(-k // 32), g) if k else (0, 0, 0)
+    return ProductPlan(TILE_ROWS, bn, DEPTH, (-(-n // bn), -(-m // TILE_ROWS), g), kgrid, mp,
+                       -(-n // 4) * 4 if ny is None else int(ny), THREADS,
+                       STAGES * DEPTH * (TILE_ROWS + bn) * 4)
 
 
 def _operands(x, y, a):
@@ -216,6 +282,14 @@ class _View(ctypes.Structure):
     _fields_ = [("p", ctypes.c_void_p), ("gs", ctypes.c_longlong), ("rs", ctypes.c_longlong)]
 
 
+class _Plan(ctypes.Structure):
+    """``ProductPlan`` of ``csrc/minplus.cu``."""
+
+    _fields_ = [(f, ctypes.c_int) for f in ("bm", "bn", "bk", "gx", "gy", "gz", "kx", "ky",
+                                              "kz", "mp", "threads", "smem")] + [
+        ("ny", ctypes.c_longlong)]
+
+
 def _view(t: Optional[torch.Tensor]) -> _View:
     if t is None:
         return _View(None, 0, 0)
@@ -290,7 +364,11 @@ def ring_rows(y: torch.Tensor) -> torch.Tensor:
 
 
 def _launch(name: str, mode: int, x, y, a, semiring, px=None, py=None, pa=None,
-            k_offset: int = 0, j_offset: int = 0) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+            k_offset: int = 0, j_offset: int = 0, plan: Optional[ProductPlan] = None
+            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Check, plan (``plan`` replaces :func:`launch_plan`'s: the grid
+    verifier hands the C entry point defective plans, which it must
+    refuse), allocate and launch."""
     sr = get_semiring(semiring)
     g, m, k, n = _check(name, x, y, a)
     if mode == 2:
@@ -303,29 +381,30 @@ def _launch(name: str, mode: int, x, y, a, semiring, px=None, py=None, pa=None,
     shape = x.shape[:-1] + (n,)
     z = torch.empty(shape, dtype=torch.float32, device=x.device)
     out = torch.empty(shape, dtype=torch.int32, device=x.device) if mode else None
-    mp = -(-m // 32) * 32
-    xt = torch.empty((g, k, mp), dtype=torch.float32, device=x.device)
     ny = n
     if k:
         y = ring_rows(y)
         ny = _ring_limit(y, n)
+    plan = launch_plan(g, m, k, n, name, ny=ny) if plan is None else plan
+    xt = torch.empty((g, k, plan.xt_pitch), dtype=torch.float32, device=x.device)
     work = minplus_work(g, m, k, n, mode=name, accumulate=a is not None)
     report = dict(shape=f"{g}x{m}x{k}x{n}" + (" accumulate" if a is not None else ""),
-                  plan={"xt_pitch": mp, "ny": ny})
+                  plan=plan)
     if x.is_meta:
         op_cost.report_kernel(name, work, **report)
         return z, out
     from . import _build
 
     fn = _build.function("minplus", "minplus_launch",
-                         [ctypes.c_int] * 3 + [_View, ctypes.c_void_p, ctypes.c_int, _View,
-                                               ctypes.c_longlong, _View, ctypes.c_void_p,
-                                               ctypes.c_void_p, _View, _View, _View]
-                         + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+                         [ctypes.c_int] * 3 + [_View, ctypes.c_void_p, _View, _View,
+                                               ctypes.c_void_p, ctypes.c_void_p, _View, _View,
+                                               _View] + [ctypes.c_int] * 6
+                         + [ctypes.POINTER(_Plan), ctypes.c_void_p])
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(code, mode, int(a is not None), _view(x), xt.data_ptr() or None, mp,
-             _view(y), ny, _view(a), z.data_ptr(), None if out is None else out.data_ptr(),
-             _view(px), _view(py), _view(pa), g, m, k, n, int(k_offset), int(j_offset), stream)
+    err = fn(code, mode, int(a is not None), _view(x), xt.data_ptr() or None, _view(y),
+             _view(a), z.data_ptr(), None if out is None else out.data_ptr(), _view(px),
+             _view(py), _view(pa), g, m, k, n, int(k_offset), int(j_offset),
+             ctypes.byref(plan.c_args()), stream)
     if err:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
     _counts.bump(launches, name)

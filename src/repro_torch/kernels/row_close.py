@@ -189,20 +189,23 @@ def _check(d: torch.Tensor, rows: torch.Tensor) -> Tuple[int, int]:
     if not (d.is_contiguous() and rows.is_contiguous()):
         raise ValueError("row_close takes contiguous tensors")
     n = d.shape[0]
-    if not d.is_meta and bool(((rows < 0) | (rows >= n)).any()):
+    # The ids are checked on the host before the gather (ROADMAP: out-of-range ids
+    # raise where JAX clamps); the kernel's gather then needs no bounds check.
+    if not d.is_meta and bool(((rows < 0) | (rows >= n)).any()):  # repro: allow-host-sync  ids
         raise IndexError(f"row_close: a row id lies outside [0, {n})")
     return rows.numel(), n
 
 
 def _prepare(name: str, d: torch.Tensor, rows: torch.Tensor, pred: Optional[torch.Tensor],
-             semiring) -> Tuple[Callable[[], int], torch.Tensor, Optional[torch.Tensor],
-                                 RowClosePlan]:
+             semiring, plan: Optional[RowClosePlan] = None
+             ) -> Tuple[Callable[[], int], torch.Tensor, Optional[torch.Tensor], RowClosePlan]:
     """Check the operands, plan the launch and allocate the outputs and
     scratches of one pass in mode ``name``: (launch, Z, K* or preds, plan),
     where ``launch()`` runs the pass's grids on the current stream and
     returns their cudaError_t (on ``meta``: runs nothing, returns 0).
     ``chip_smoke.py`` times ``launch`` alone: the row check here
-    synchronises with the card."""
+    synchronises with the card.  ``plan`` replaces :func:`launch_plan`'s
+    (the grid verifier hands the C entry point defective plans)."""
     sr = get_semiring(semiring)
     r, n = _check(d, rows)
     mode = ("row_close", "row_close_argmin", "row_close_pred").index(name)
@@ -214,7 +217,7 @@ def _prepare(name: str, d: torch.Tensor, rows: torch.Tensor, pred: Optional[torc
     code = semiring_code(sr, name)
     sms = (HW.SMS if d.is_meta
            else torch.cuda.get_device_properties(d.device).multi_processor_count)
-    plan = launch_plan(r, n, mode != 0, sms)
+    plan = launch_plan(r, n, mode != 0, sms) if plan is None else plan
     dev = d.device
     z = torch.empty((r, n), dtype=torch.float32, device=dev)
     out = torch.empty((r, n), dtype=torch.int32, device=dev) if mode else None
@@ -253,8 +256,9 @@ def _prepare(name: str, d: torch.Tensor, rows: torch.Tensor, pred: Optional[torc
 
 
 def _launch(name: str, d: torch.Tensor, rows: torch.Tensor, pred: Optional[torch.Tensor],
-            semiring) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    launch, z, out, plan = _prepare(name, d, rows, pred, semiring)
+            semiring, plan: Optional[RowClosePlan] = None
+            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    launch, z, out, plan = _prepare(name, d, rows, pred, semiring, plan)
     r, n = rows.numel(), d.shape[0]
     report = dict(shape=f"r={r} n={n}", plan=tuple(plan))
     if d.is_meta:

@@ -38,7 +38,8 @@ from torch.utils.flop_counter import flop_registry
 
 from .analysis import HW, collective_bytes, rate_of
 
-__all__ = ["OpCost", "OpCounter", "active", "report_kernel", "report_collective"]
+__all__ = ["OpCost", "OpCounter", "KernelLog", "active", "report_kernel",
+           "report_collective"]
 
 aten = torch.ops.aten
 
@@ -84,6 +85,28 @@ def report_kernel(name: str, work, *, shape: str = "", plan: Any = None) -> None
     c = active()
     if c is not None:
         c.kernel(name, work, shape=shape, plan=plan)
+
+
+class KernelLog:
+    """Every kernel report made on this thread inside ``with KernelLog() as
+    log:``, in order: ``log.launches`` holds ``(name, shape, plan, work)``
+    a launch (or a ``meta`` call).  It takes the reports the innermost
+    running counter would take, so an :class:`OpCounter` around it sees
+    none of them; its ``cost`` collects the collectives."""
+
+    def __init__(self):
+        self.launches: List[Tuple[str, str, Any, Any]] = []
+        self.cost = OpCost()
+
+    def __enter__(self) -> "KernelLog":
+        _stack().append(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _stack().remove(self)
+
+    def kernel(self, name: str, work, *, shape: str = "", plan: Any = None) -> None:
+        self.launches.append((name, shape, plan, work))
 
 
 def report_collective(kind: str, nbytes: int) -> None:

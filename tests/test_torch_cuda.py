@@ -1010,3 +1010,40 @@ def test_gnn_train_steps_on_card_match_cpu(cuda, arch_id):
             out.append((float(m["loss"]), float(m["grad_norm"])))
         runs[dev] = out
     np.testing.assert_allclose(runs["cuda"], runs["cpu"], rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the grid verifier's card half (repro_torch.analysis.kernelcheck)
+# ---------------------------------------------------------------------------
+
+def test_kernelcheck_lattice_through_the_cuda_kernels(cuda):
+    """Every lattice case and autotune candidate through its CUDA kernel,
+    the output seeded with the canary: bit-equal to the plain version, and
+    at least one canary hit for each of the six kernels."""
+    from repro_torch.analysis.kernelcheck import autotune_cases, default_cases
+    from repro_torch.analysis.kernelcheck.lattice import GROUPS
+    from repro_torch.analysis.kernelcheck.verify import verify_case_cuda
+
+    hits = {}
+    for case in default_cases() + autotune_cases():
+        problems, hit = verify_case_cuda(case, cuda)
+        assert [str(p) for p in problems] == [], case.name
+        hits[GROUPS[case.kernel]] = hits.get(GROUPS[case.kernel], 0) + int(hit)
+    assert len(hits) == 6 and all(hits.values()), hits
+
+
+def test_kernelcheck_c_entry_points_refuse_the_mutants_plans(cuda):
+    from repro_torch.analysis.kernelcheck.mutants import mutant_cases, refused_on_card
+
+    forms = [m for m in mutant_cases() if m.c_form is not None]
+    assert len(forms) >= 6
+    for m in forms:
+        assert refused_on_card(m, cuda) == {"refused": True, "intact": True}, m.case.name
+
+
+def test_kernelcheck_seeded_defect_kernels_are_caught(cuda):
+    from repro_torch.analysis.kernelcheck.mutants import kernel_mutants, verify_kernel_mutant
+
+    for km in kernel_mutants():
+        kinds = {p.kind for p in verify_kernel_mutant(km, cuda)}
+        assert (km.expect in kinds) if km.expect else not kinds, (km.name, kinds)

@@ -75,6 +75,24 @@ def test_port_files_exist():
     "repro_torch.launch.mesh",
     "repro_torch.launch.apsp_run",
     "repro_torch.sharding",
+    "repro_torch.analysis",
+    "repro_torch.analysis.__main__",
+    "repro_torch.analysis.base",
+    "repro_torch.analysis.pragmas",
+    "repro_torch.analysis.astutil",
+    "repro_torch.analysis.dispatch",
+    "repro_torch.analysis.semiring_hardcode",
+    "repro_torch.analysis.purity",
+    "repro_torch.analysis.autotune_key",
+    "repro_torch.analysis.except_swallow",
+    "repro_torch.analysis.donation",
+    "repro_torch.analysis.kernelcheck",
+    "repro_torch.analysis.kernelcheck.intercept",
+    "repro_torch.analysis.kernelcheck.simulate",
+    "repro_torch.analysis.kernelcheck.verify",
+    "repro_torch.analysis.kernelcheck.lattice",
+    "repro_torch.analysis.kernelcheck.mutants",
+    "repro_torch.analysis.kernelcheck.checker",
     "repro_torch.models.transformer",
     "repro_torch.models.kvcache",
     "repro_torch.models.moe",
@@ -115,6 +133,51 @@ def test_port_imports_neither_jax_nor_repro():
         if _forbidden(m)
     ]
     assert not bad, bad
+
+
+def test_analysis_imports_neither_jax_nor_repro():
+    """The port's checkers keep their own copies of what they need of
+    ``repro.analysis`` (``astutil``, ``pragmas``), which import no JAX, and
+    import no JAX themselves; nor do the kernel modules that now carry the
+    launch plans, at any depth of an import inside a function."""
+    files = sorted((ROOT / "src" / "repro_torch" / "analysis").rglob("*.py"))
+    files += [ROOT / "src" / "repro_torch" / "kernels" / f"{m}.py"
+              for m in ("minplus", "fw_round", "_build")]
+    files += [ROOT / "src" / "repro_torch" / "roofline" / "op_cost.py"]
+    assert len(files) >= 20 and all(p in PORT_FILES for p in files)
+    for p in files:
+        relative = [n for n in ast.walk(ast.parse(p.read_text())) if isinstance(n, ast.ImportFrom)
+                    and n.level and (n.module or "").split(".")[0] in ("jax", "repro")]
+        assert not relative and not [m for m in _imported_modules(p) if _forbidden(m)], p
+    assert (ROOT / "src" / "repro_torch" / "analysis" / "kernelcheck" / "csrc"
+            / "mutants.cu").is_file()
+
+
+def test_analysis_cli_runs_without_jax(tmp_path):
+    """``python -m repro_torch.analysis`` in a process where ``jax`` and
+    ``repro`` cannot load: it imports every check (``--list``) and runs the
+    AST checks and the donation check's solvers over the port's tree, exit
+    0.  (The kernel grid verifier runs in ``test_torch_kernelcheck.py``;
+    the AST scan above covers its imports, inside functions too.)"""
+    blocker = tmp_path / "blocker"
+    blocker.mkdir()
+    (blocker / "sitecustomize.py").write_text(
+        "import sys\n"
+        "class _Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'repro'):\n"
+        "            raise ImportError(f'{name} is blocked')\n"
+        "sys.meta_path.insert(0, _Block())\n")
+    env = dict(os.environ, PYTHONPATH=f"{blocker}{os.pathsep}{ROOT / 'src'}",
+               OMP_NUM_THREADS="1")
+    listed = subprocess.run([sys.executable, "-m", "repro_torch.analysis", "--list"], cwd=ROOT,
+                            env=env, capture_output=True, text=True, timeout=120)
+    assert listed.returncode == 0 and len(listed.stdout.splitlines()) == 7, listed.stderr
+    checks = "unfused-dispatch,semiring-hardcode,host-sync,autotune-key,except-swallow,donation"
+    out = subprocess.run([sys.executable, "-m", "repro_torch.analysis", "--checks", checks],
+                         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
+    assert "6 check(s)" in out.stdout and "clean" in out.stdout
 
 
 def test_the_scan_catches_forbidden_imports():

@@ -10,7 +10,12 @@ The kernels check the same conditions (``close_plan_ok`` and
 the plans to them on the CPU, for every tile size the kernels take.  The
 row-close pass's plan (``row_close.launch_plan``: its tile, its k chunks
 and its scratch; ``plan_ok`` in ``csrc/row_close.cu``) is held the same
-way.
+way, and so are the product's (``minplus.launch_plan``: the tile, the
+product and k-major grids, X^T's pitch, the ring's ``ny``, shared bytes;
+``plan_is`` in ``csrc/minplus.cu``) and the fused round's
+(``fw_round.launch_plan``: the grids of ``fw_panels``, ``fw_colpanel`` and
+``fw_update``, the ring's tile, the pitches; ``round_plan_is`` in
+``csrc/fw_round.cu``), for every shape the port launches.
 """
 
 import importlib
@@ -24,6 +29,7 @@ import pytest
 fb = importlib.import_module("repro_torch.kernels.fw_block")
 fr = importlib.import_module("repro_torch.kernels.fw_round")
 rc = importlib.import_module("repro_torch.kernels.row_close")
+mp = importlib.import_module("repro_torch.kernels.minplus")
 
 CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "kernels" / "csrc"
 SHARED_PER_CTA = 227 * 1024      # the H100's 227 KB (232,448 bytes)
@@ -284,3 +290,113 @@ def test_row_close_plan_fills_the_card(track):
 def test_row_close_plan_rejects_empty_operands(r, n):
     with pytest.raises(ValueError):
         rc.launch_plan(r, n, True)
+
+
+# The product (csrc/minplus.cu) and the fused round's ring grids
+# (csrc/fw_round.cu): the shapes the port launches.  Rounds: G graphs of N
+# nodes at every tile the solvers and the tuner take (the paper corpus
+# stacks up to 1000 graphs).  Products: the split and pred rounds' stages at
+# N = 8192 and 16384 for B = 256, 512 and 1024, rank-k passes, squaring,
+# R-Kleene's quadrants, spd_features' hops, batched stacks, N not a
+# multiple of 4, and the empty k.
+ROUND_SHAPES = [(g, n, b) for b in (8, 16, 32, 64, 100, 128, 256, 512, 1024)
+                for n in (b, 2 * b, 8192 // b * b, 16384 // b * b) for g in (1, 4)] + [
+    (1000, 1024, 256), (64, 2048, 256), (8, 8191 // 64 * 64, 64)]
+PRODUCT_SHAPES = sorted({
+    *((1, n, b, n) for n in (8192, 16384) for b in (256, 512, 1024)),
+    *((1, b, b, n) for n in (8192, 16384) for b in (256, 512, 1024)),
+    *((1, n, b, b) for n in (8192, 16384) for b in (256, 512, 1024)),
+    *((1, 8192, k, 8192) for k in (1, 4, 16, 64)), (4, 8192, 16, 8192),
+    (1, 1024, 1024, 1024), (1, 4096, 4096, 4096), (1, 8192, 8192, 8192),
+    (1, 2048, 2048, 2048), (1, 8, 8191, 8191), (1, 64, 8192, 8192), (1, 8, 2708, 2708),
+    (1000, 64, 64, 64), (64, 512, 256, 512), (2, 13, 21, 130), (1, 1, 1, 1), (1, 5, 0, 7)})
+
+
+def _cfg(name: str, text: str) -> int:
+    m = re.search(rf"\b{name} = (\d+)", text)
+    assert m, name
+    return int(m.group(1))
+
+
+def _ring_smem(bm: int, bn: int, bk: int, stages: int) -> int:
+    """C's RingShape::kSmemBytes (minplus_tile.cuh), from its source."""
+    text = (CSRC / "minplus_tile.cuh").read_text()
+    assert "kStageFloats = BK * (BM + BN);" in text
+    assert "kSmemBytes = STAGES * kStageFloats * 4;" in text
+    return stages * bk * (bm + bn) * 4
+
+
+@pytest.mark.parametrize("mode", ["minplus", "minplus_argmin", "minplus_pred"])
+def test_product_plan_is_the_kernels(mode):
+    """What plan_is checks: Cfg's tile (64 rows, 16 * TN columns, TN 8 for
+    values and 4 with a witness, 32-deep slices, 3 slots), 128 threads of
+    8 x TN outputs, the ring's shared bytes inside a CTA's 227 KB."""
+    text = (CSRC / "minplus.cu").read_text()
+    assert "static constexpr int TN = TRACK ? 4 : 8;" in text
+    tn = 4 if mode != "minplus" else 8
+    bm, bk, stages = _cfg("BM", text), _cfg("BK", text), _cfg("STAGES", text)
+    assert "BN = 16 * TN" in text
+    plan = mp.launch_plan(1, 100, 50, 300, mode)
+    assert (plan.rows, plan.cols, plan.depth) == (bm, 16 * tn, bk)
+    assert plan.threads == (bm // 8) * (16 * tn // tn) == 128
+    assert plan.shared_bytes == _ring_smem(bm, 16 * tn, bk, stages) <= SHARED_PER_CTA
+    with pytest.raises(ValueError):
+        mp.launch_plan(1, 4, 4, 4, "minplus_pred_x")
+
+
+@pytest.mark.parametrize("mode", ["minplus", "minplus_argmin", "minplus_pred"])
+@pytest.mark.parametrize("g,m,k,n", PRODUCT_SHAPES)
+def test_product_grids_cover_the_output_and_the_copy(g, m, k, n, mode):
+    """The product grid's tiles cover (G, M, N) once with no tile past the
+    last, within CUDA's 65535 for y and z; the k-major grid's 32 x 32 tiles
+    cover X^T's (G, K, Mp) exactly (none when K = 0); Mp is M rounded up to
+    32 floats (16-byte rows); the default ny is N rounded up to 4."""
+    p = mp.launch_plan(g, m, k, n, mode)
+    gx, gy, gz = p.grid
+    assert gz == g and gx * p.cols >= n > (gx - 1) * p.cols and gy * p.rows >= m > (gy - 1) * p.rows
+    assert gy <= 65535 and gz <= 65535
+    assert p.xt_pitch % 32 == 0 and m <= p.xt_pitch < m + 32
+    assert p.ny % 4 == 0 and n <= p.ny < n + 4
+    if k:
+        kx, ky, kz = p.kmajor_grid
+        assert kx * 32 == p.xt_pitch and ky * 32 >= k > (ky - 1) * 32 and kz == g
+        assert ky <= 65535 and kz <= 65535
+    else:
+        assert p.kmajor_grid == (0, 0, 0)
+
+
+@pytest.mark.parametrize("g,n,b", ROUND_SHAPES)
+def test_round_grids_cover_their_outputs(g, n, b):
+    """fw_panels' 32 x 32 tiles cover the (B, N) panels, fw_colpanel's ring
+    tiles col'^T's (B, N), fw_update's (N, N), each once, grid z G, y and z
+    within 65535; the pitches are N and B rounded up to 32 floats, and the
+    scratches of scratch_shapes have them."""
+    p = fr.launch_plan(g, n, b)
+    um, un = p.rows, p.cols
+    assert p.panels_grid[0] * 32 >= n > (p.panels_grid[0] - 1) * 32
+    assert p.panels_grid[1] * 32 >= b > (p.panels_grid[1] - 1) * 32
+    assert p.colpanel_grid[0] * un >= n > (p.colpanel_grid[0] - 1) * un
+    assert p.colpanel_grid[1] * um >= b > (p.colpanel_grid[1] - 1) * um
+    assert p.update_grid[0] * un >= n > (p.update_grid[0] - 1) * un
+    assert p.update_grid[1] * um >= n > (p.update_grid[1] - 1) * um
+    for grid in (p.panels_grid, p.colpanel_grid, p.update_grid):
+        assert grid[2] == g and grid[1] <= 65535 and grid[2] <= 65535
+    assert (p.np, p.bp) == (fr.pitch(n), fr.pitch(b))
+    assert p.scratch == fr.scratch_shapes(g, n, b) and p.closure == fb.closure_launch(b)
+
+
+def test_round_ring_is_the_kernels():
+    """round_plan_is's tile: UM x UN outputs, UK-deep slices, kStages slots
+    (csrc/fw_round.cu), 128 threads of 8 x 8, the ring inside 227 KB."""
+    text = (CSRC / "fw_round.cu").read_text()
+    um, un, uk, st = (_cfg(k, text) for k in ("UM", "UN", "UK", "kStages"))
+    p = fr.launch_plan(1, 512, 256)
+    assert (p.rows, p.cols, p.depth) == (um, un, uk)
+    assert p.threads == (um // 8) * (un // 8) == 128
+    assert p.shared_bytes == _ring_smem(um, un, uk, st) <= SHARED_PER_CTA
+
+
+@pytest.mark.parametrize("g,n,b", [(0, 8, 8), (1, 12, 8), (1, 4, 8), (1, 8, 0)])
+def test_round_plan_rejects_shapes_the_kernel_does_not_take(g, n, b):
+    with pytest.raises(ValueError):
+        fr.launch_plan(g, n, b)
