@@ -59,7 +59,9 @@ autotune cache pointed at a fresh file before phase 1: ``tune_fw_round``
 at n_max = 1024 writes a ``cuda`` entry (the tuned solve equal to the
 default one), then ``serve_apsp`` serves 32 ragged graphs of up to 1024
 nodes, 16 a cycle, by squaring, blocked FW with and without predecessors
-and R-Kleene (graphs/s each); ``serve_apsp_dynamic`` serves 24 requests
+and R-Kleene (graphs/s each, after its autotune warm-up, whose sources
+are printed; a tuned product plan that splits k adds ``minplus_combine``
+launches); ``serve_apsp_dynamic`` serves 24 requests
 on four N = 8192 slots without chaos, plain and with predecessors (no
 retry, quarantine, poisoned answer or drift; every batched drain of the
 pool defers nothing for a failure, reports its whole group and launches
@@ -137,6 +139,18 @@ dot FLOPs (against ``FlopCounterMode``) and the peak memory (against
 ``max_memory_allocated``) are printed as ratios.  The kernels line's
 bounds come from ``repro_torch.roofline.kernels``.
 
+Phase 13 runs the port's invariant checkers on the card; phase 14 the
+product kernels' tile lattice (``drive_tuning``): every candidate of an
+``spd_features`` hop at N = 8192 with L = 8 and 64, the batched rank-k
+pass, phase 10b's SUMMA panel and the split round's three panels, and of
+the row pass at r = 16, 64, 129 and 1024, bit-equal to the plain version
+(four semirings on the L = 8 hop, the witness and pred modes on a tied
+L = 64 hop), ``tune`` / ``tune_row_close`` into a fresh cache, the
+dispatch through ``ops`` launching exactly the winner's plan (and an
+explicit knob beating the cache), the default and tuned ms beside the
+bound, and the split-k combine (``minplus_combine``) alone against its
+plain version; it goes on the kernels line.
+
 Every launch check reads the port's launch counters (``kernels/
 _counts.py``), never ``torch.profiler``, which can lose a grid of a trace
 (PERF.md §7); the profiler's count of each kernel's grids is printed
@@ -167,6 +181,9 @@ paths at N = 8192, and the row pass (``row_close_times``), for the package
 under ``ROOT/src`` (this tree, or another commit unpacked with ``git
 archive``), and prints them as one JSON line.
 Run it on two trees in turns, in one run on one card, to compare them.
+``python3 chip_smoke.py --serve ROOT`` likewise prints ``serve_apsp``'s
+graphs/s at n_max = 1024 for squaring, blocked FW and R-Kleene, each after
+its autotune warm-up into a fresh cache.
 """
 
 from __future__ import annotations
@@ -650,6 +667,38 @@ def times(root: Path) -> int:
         "row_close": row_close_times(h),
         "ptxas_row_close": _build.ptxas_report("row_close"),
     }))
+    return 0
+
+
+def serve_rates(root: Path) -> int:
+    """``--serve ROOT``: ``serve_apsp`` of the package under ``ROOT/src``
+    on the card, 48 ragged graphs of up to 1024 nodes, 16 a cycle, by
+    squaring, blocked FW and R-Kleene, each after its own autotune warm-up
+    into a fresh cache (what a server pays for its tuned, or fixed, plans);
+    one JSON line of graphs/s and the cache entries the dispatch read."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(root.resolve() / "src"))
+    scratch = Path(tempfile.mkdtemp(prefix="chip-smoke-serve-"))
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = str(scratch / "autotune.json")
+    try:
+        from repro_torch.kernels import _build, autotune
+        from repro_torch.launch import serve
+
+        _build.build(_build.sources())
+        rates = {}
+        for method in ("squaring", "blocked_fw", "rkleene"):
+            got = {}
+            check(serve.serve_apsp(48, batch=16, n_max=1024, method=method,
+                                   summary_out=got) == 0, f"serve_apsp {method} failed")
+            rates[method] = {"graphs_per_s": got["graphs_per_s"],
+                             "steady_graphs_per_s": got["steady_graphs_per_s"]}
+        print(json.dumps({"root": str(root), "card": nvidia_smi("name,power.limit"),
+                          "serve_apsp n_max=1024": rates,
+                          "autotune_entries": autotune.touched_entries()}))
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
     return 0
 
 
@@ -1407,16 +1456,24 @@ def drive_serving(card: str, scratch: Path, lane_rate: float):
               "blocked_fw": {"fw_round"} if rm_t == "fused" else {"fw_block", "minplus"}}
     for label, method, pred in SERVE_METHODS:
         got = {}
+        # The server's warm-up (serve.warm_autotune) first, outside the
+        # counted run: it measures products.  serve_apsp's own warm-up then
+        # finds every entry cached.  A tuned product plan that splits k also
+        # launches minplus_combine.
+        warm = serve.warm_autotune(method, n_max, 16, device="cuda")
         reset()
         rc_ = serve.serve_apsp(SERVE_REQUESTS["8a"], batch=16, n_max=n_max, method=method,
                                with_pred=pred, summary_out=got)
         lbl = f"serve_apsp {label} n_max={n_max}"
         launches[lbl] = read()
         check(rc_ == 0, f"{lbl} returned {rc_}")
-        check(set(launches[lbl]) == expect[label],
+        kinds = set(launches[lbl])
+        products = bool(expect[label] & {"minplus", "minplus_pred"})
+        check(kinds == expect[label] or (products and kinds == expect[label] | {"minplus_combine"}),
               f"{lbl} launched {launches[lbl]}, expected the kernels {expect[label]}")
-        times[lbl] = got
-        print(f"phase 8a {lbl} on {card}: {got['graphs_per_s']:.1f} graphs/s end to end, "
+        times[lbl] = dict(got, warm_up_sources=warm)
+        print(f"phase 8a {lbl} on {card}: warm-up sources {json.dumps(warm)}; "
+              f"{got['graphs_per_s']:.1f} graphs/s end to end, "
               f"{got['steady_graphs_per_s']:.1f} steady, first cycle {got['first_cycle_s']:.2f} s; "
               f"launches {launches[lbl]}")
 
@@ -3082,6 +3139,244 @@ def drive_analysis(card: str, h16: torch.Tensor):
             "scratch_bytes": scratch, "phase_s": phase_s}
 
 
+# Phase 14's shapes: the products whose one fixed tile fits badly (an
+# spd_features hop at N = 8192 with 8 and 64 landmarks, the batched rank-k
+# pass, phase 10b's SUMMA panel), the split round's three panels at
+# N = 8192, B = 256, and the row pass at r = 16, 64, 129 and 1024.
+TUNE_ROWS = (16, 64, 129, 1024)
+
+
+def drive_tuning(card: str, scratch: Path, h: torch.Tensor, lane_rate: float):
+    """Phase 14: the product kernels' tunable tile lattice on the card.  For
+    each shape: every candidate of ``autotune.candidates`` (the row pass:
+    ``_row_close_candidates``) bit-equal to the plain version; ``tune`` /
+    ``tune_row_close`` measuring the lattice into a fresh cache; ``ops``
+    then dispatching exactly the winner's plan (the plan the wrapper
+    reports, and the launch counters: the product, and ``minplus_combine``
+    exactly when the winner splits k); the default plan's and the winner's
+    ms (a wrapper call, CUDA events, median of 10; the row pass's grids
+    alone) beside the bound.  All four semirings on the L = 8 hop, every
+    candidate's witness and pred modes on a tied L = 64 hop, an explicit
+    knob beating the cache, and the split-k combine alone against its plain
+    version.  Returns (launches of the dispatches, the combine's entry for
+    the kernels line, per-shape rows for the minplus and row_close
+    entries)."""
+    from repro_torch.core import init_pred
+    from repro_torch.kernels import autotune, ops
+    from repro_torch.roofline import op_cost
+
+    t_phase = time.perf_counter()
+    mp, rc = kernel_module("minplus"), kernel_module("row_close")
+    rk = bounds()
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = str(scratch / "autotune-phase14.json")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n, b = h.shape[0], 256
+    o = n // 2
+    rng = np.random.default_rng(14)
+    counts = {"minplus": 0, "minplus_combine": 0, "row_close": 0}
+    err = {"minplus": 0.0, "minplus_combine": 0.0, "row_close": 0.0}
+
+    def reset():
+        for c_ in (mp.launches, rc.launches):
+            c_.update(dict.fromkeys(c_, 0))
+
+    def dispatched(fn):
+        """(result, the reports, the launches) of one ``ops`` dispatch."""
+        reset()
+        with op_cost.KernelLog() as log:
+            out = fn()
+        torch.cuda.synchronize()
+        got = {k: v for k, v in {**mp.launches, **rc.launches}.items() if v}
+        for k, v in got.items():
+            counts[k] = counts.get(k, 0) + v
+        return out, log.launches, got
+
+    lm8 = torch.from_numpy(np.linspace(0, n - 1, 8).astype(np.int64)).cuda()
+    lm64 = torch.from_numpy(np.linspace(0, n - 1, 64).astype(np.int64)).cuda()
+    d8, d64 = h[lm8].contiguous(), h[lm64].contiguous()
+    col, row = h[:, o:o + b].contiguous(), h[o:o + b, :].contiguous()
+    piv = h[o:o + b, o:o + b].contiguous()
+    x4 = torch.stack([h[:, 16 * i:16 * i + 16] + 7.0 for i in range(4)]).contiguous()
+    y4 = torch.stack([h[16 * i + 64:16 * i + 80] for i in range(4)]).contiguous()
+    a4 = torch.stack([h.roll(i, 0) for i in range(4)])
+    half, panel = n // 2, n // 4
+    products = {   # label: (x, y, a)
+        f"spd_features hop {8}x{n} x {n}x{n} accumulate": (d8, h, d8),
+        f"spd_features hop {64}x{n} x {n}x{n} accumulate": (d64, h, d64),
+        f"batched rank-k pass G=4 {n}x16 x 16x{n} accumulate": (x4, y4, a4),
+        f"SUMMA panel {half}x{panel} x {panel}x{half} accumulate":
+            (operand(rng, (half, panel), "tropical"), operand(rng, (panel, half), "tropical"),
+             operand(rng, (half, half), "tropical", density=0.2)),
+        f"split round row panel {b}x{b} x {b}x{n}": (piv, row, None),
+        f"split round column panel {n}x{b} x {b}x{b}": (col, piv, None),
+        f"split round phase 3 {n}x{b} x {b}x{n} accumulate": (col, row, h),
+    }
+    rows_out, n_cands = {}, 0
+    for label, (x, y, a) in products.items():
+        g = x.shape[0] if x.ndim == 3 else 0
+        m, k = x.shape[-2:]
+        nn = y.shape[-1]
+        want = mp.minplus_torch(x, y, a)
+        cands = autotune.candidates("cuda", m, k, nn, g=g, sms=sms)
+        for p in cands:
+            got = mp.minplus_cuda(x, y, a, **p)
+            check(same(got, want), f"14 {label}: candidate {p} differs from the plain version")
+            err["minplus"] = max(err["minplus"], abs_err(got, want))
+        n_cands += len(cands)
+        t0 = time.perf_counter()
+        entry = autotune.tune(m, k, nn, g=g, device="cuda")
+        tune_s = time.perf_counter() - t0
+        key = autotune.key_for("cuda", torch.float32, m, k, nn, g=g)
+        check(entry["source"] == "measured" and key in autotune.load_entries(),
+              f"14 {label}: tune wrote no {key} entry: {entry}")
+        win = entry["params"]
+        z, reports, got = dispatched(lambda: ops.minplus(x, y, a))
+        plan = reports[0][2]
+        check(same(z, want), f"14 {label}: the tuned dispatch differs from the plain version")
+        check(plan == mp.launch_plan(g or 1, m, k, nn, "minplus", ny=plan.ny, **win),
+              f"14 {label}: the dispatch ran {plan}, not the winner {win}")
+        check(got == ({"minplus": 1, "minplus_combine": 1} if plan.chunks > 1
+                      else {"minplus": 1}),
+              f"14 {label}: the tuned dispatch launched {got} for the plan {win}")
+        default_ms = median_ms(lambda: mp.minplus_cuda(x, y, a), reps=10)
+        win_ms = median_ms(lambda: mp.minplus_cuda(x, y, a, **win), reps=10)
+        default_dev = device_ms(lambda: mp.minplus_cuda(x, y, a))
+        win_dev = device_ms(lambda: mp.minplus_cuda(x, y, a, **win))
+        bound, by = rk.minplus_work(g or 1, m, k, nn, accumulate=a is not None).bound(lane_rate)
+        # The witness kernel at the shape, under the value fold's winner
+        # (the dispatch hands it the same knobs).
+        w_default = device_ms(lambda: mp.minplus_argmin_cuda(x, y, a))
+        w_tuned = device_ms(lambda: mp.minplus_argmin_cuda(x, y, a, **win))
+        w_bound, w_by = rk.minplus_work(g or 1, m, k, nn, mode="minplus_argmin",
+                                        accumulate=a is not None).bound(lane_rate)
+        rows_out[label] = {"default_ms": default_ms, "tuned_ms": win_ms,
+                           "default_device_ms": default_dev, "tuned_device_ms": win_dev,
+                           "tuned": win, "bound_ms": bound, "bound_by": by,
+                           "candidates": len(cands), "tune_s": tune_s,
+                           "minplus_argmin": {"default_device_ms": w_default,
+                                              "tuned_device_ms": w_tuned, "bound_ms": w_bound,
+                                              "bound_by": w_by}}
+        print(f"phase 14 {label} on {card}: {len(cands)} candidates bit-equal to the plain "
+              f"version; tuned {win} in {tune_s:.2f} s; default plan {default_ms:.4f} ms a "
+              f"call ({default_dev:.4f} device), tuned {win_ms:.4f} ms ({win_dev:.4f} device; "
+              f"medians of 10), bound {bound:.4f} ms by {by}; minplus_argmin under the same "
+              f"knobs {w_default:.4f} -> {w_tuned:.4f} ms device (bound {w_bound:.4f}); the "
+              f"dispatch launched {got}")
+    del x4, y4, a4
+
+    # Every candidate under the four semirings (the L = 8 hop), and in the
+    # witness and pred modes on a tied L = 64 hop (ties across k chunks:
+    # the combine must keep the smallest k).
+    for name in SEMIRING_NAMES:
+        xs, ys = operand(rng, (8, n), name), operand(rng, (n, n), name)
+        want = mp.minplus_torch(xs, ys, xs, semiring=name)
+        for p in autotune.candidates("cuda", 8, n, n, sms=sms):
+            check(same(mp.minplus_cuda(xs, ys, xs, semiring=name, **p), want),
+                  f"14 {name}: candidate {p} differs from the plain version")
+    del xs, ys
+    xt_, yt_ = operand(rng, (64, n), "tropical", ties=True), operand(rng, (n, n), "tropical",
+                                                                     ties=True)
+    pr = init_pred(yt_)
+    px, pa = pr[lm64].contiguous(), pr[lm64].contiguous()
+    za, ka = mp.minplus_argmin_torch(xt_, yt_, xt_)
+    zp, pp = mp.minplus_pred_torch(xt_, yt_, px, pr, xt_, pa)
+    for p in autotune.candidates("cuda", 64, n, n, sms=sms):
+        z1, k1 = mp.minplus_argmin_cuda(xt_, yt_, xt_, **p)
+        z2, p2 = mp.minplus_pred_cuda(xt_, yt_, px, pr, xt_, pa, **p)
+        check(same(z1, za) and torch.equal(k1, ka) and same(z2, zp) and torch.equal(p2, pp),
+              f"14 witness: candidate {p} differs from the plain version")
+    # An explicit knob beats the cache: 16-row tiles, k in 8 chunks.
+    z, reports, got = dispatched(lambda: ops.minplus_argmin(xt_, yt_, xt_, tile_rows=16,
+                                                            chunks=8))
+    check(same(z[0], za) and torch.equal(z[1], ka)
+          and reports[0][2] == mp.launch_plan(1, 64, n, n, "minplus_argmin", ny=n,
+                                              tile_rows=16, chunks=8)
+          and got == {"minplus_argmin": 1, "minplus_combine": 1},
+          f"14 explicit knobs: launched {got}, plan {reports[0][2]}")
+    # The combine alone, on the chunk partials of the L = 64 hop.
+    chunk = mp.launch_plan(1, 64, n, n, tile_rows=16, chunks=8).chunk
+    pz, pk = mp.minplus_partials_torch(xt_, yt_, chunk, track=True)
+    for mode in mp.MODES:
+        extra = dict(px=px, py=pr, pa=pa) if mode == "minplus_pred" else {}
+        kk = None if mode == "minplus" else pk
+        gz, go = mp.minplus_combine_cuda(pz, kk, xt_, mode=mode, **extra)
+        wz, wo = mp.minplus_combine_torch(pz, kk, xt_, mode=mode, **extra)
+        check(same(gz, wz) and (go is None or torch.equal(go, wo)),
+              f"14 minplus_combine {mode}: differs from its plain version")
+        err["minplus_combine"] = max(err["minplus_combine"], abs_err(gz, wz))
+    comb_ms = device_ms(lambda: mp.minplus_combine_cuda(pz, None, xt_))
+    comb_call = median_ms(lambda: mp.minplus_combine_cuda(pz, None, xt_), reps=10)
+    comb_plain = median_ms(lambda: mp.minplus_combine_torch(pz, None, xt_), reps=3)
+    cb, cby = rk.minplus_combine_work(1, 64, n, pz.shape[0], accumulate=True).bound(lane_rate)
+    del pz, pk, xt_, yt_, pr, px, pa
+
+    # The row pass.
+    rc_rows = {}
+    for r in TUNE_ROWS:
+        ids = torch.from_numpy(np.linspace(0, n - 1, r).astype(np.int32)).cuda()
+        want = rc.row_close_torch(h, ids)[0]
+        cands = autotune._row_close_candidates("cuda", r, n, sms)
+        for p in cands:
+            got_z = rc.row_close_cuda(h, ids, **p)[0]
+            check(same(got_z, want), f"14 row_close r={r}: candidate {p} differs from the "
+                                     "plain version")
+            err["row_close"] = max(err["row_close"], abs_err(got_z, want))
+        n_cands += len(cands)
+        t0 = time.perf_counter()
+        entry = autotune.tune_row_close(r, n, device="cuda")
+        tune_s = time.perf_counter() - t0
+        check(entry["source"] == "measured", f"14 row_close r={r}: tune_row_close {entry}")
+        win = entry["params"]
+        (out, _), reports, got = dispatched(lambda: ops.row_restricted_close(h, ids))
+        plan = rc.RowClosePlan(*reports[0][2])
+        check(same(out.index_select(0, ids.long()), want) and got == {"row_close": 1}
+              and plan == rc.launch_plan(r, n, False, sms, **win),
+              f"14 row_close r={r}: the dispatch launched {got} with {plan}, winner {win}")
+        default = rc._prepare("row_close", h, ids, None, "tropical")[0]
+        tuned = rc._prepare("row_close", h, ids, None, "tropical", **win)[0]
+        check(default() == 0 and tuned() == 0, f"14 row_close r={r}: a launch was refused")
+        default_ms = device_ms(default)
+        win_ms = device_ms(tuned)
+        bound, by = rk.row_close_work("row_close", r, n).bound(lane_rate)
+        fill = rc.launch_plan(r, n, False, sms)
+        rc_rows[f"row_close r={r} N={n}"] = {
+            "default_device_ms": default_ms,
+            "default": {"tile_rows": fill.rows, "chunks": fill.chunks},
+            "tuned_device_ms": win_ms, "tuned": win, "bound_ms": bound, "bound_by": by,
+            "candidates": len(cands), "tune_s": tune_s}
+        print(f"phase 14 row_close r={r} N={n} on {card}: {len(cands)} candidates bit-equal to "
+              f"the plain version; tuned {win} in {tune_s:.2f} s; default plan "
+              f"(tile_rows {fill.rows}, chunks {fill.chunks}) {default_ms:.4f} ms, tuned "
+              f"{win_ms:.4f} ms (the pass's grids, device ms, medians of 10), bound "
+              f"{bound:.4f} ms by {by}")
+    check(counts["minplus_combine"] >= 1, "14: no dispatch launched minplus_combine")
+    phase_s = time.perf_counter() - t_phase
+    entry = {
+        "name": "minplus_combine",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/minplus.cu",
+        "replaces": "src/repro/kernels/minplus.py:235",
+        "launches": counts["minplus_combine"],
+        "launches_by_path": {"phase 14 tuned and explicit-knob dispatches": counts},
+        "max_abs_err": err["minplus_combine"],
+        "ms": comb_ms,
+        "wrapper_call_ms": comb_call,
+        "plain_ms": comb_plain,
+        "bound_ms": cb,
+        "bound_by": cby,
+        "library_ms": None,
+        "shape": f"{chunk}-k chunks of 64x{n} x {n}x{n} accumulate (the L = 64 hop at 8 "
+                 "chunks): the partials folded into Z",
+        "card": card,
+    }
+    print(f"phase 14 on {card}: {phase_s:.1f} s; {n_cands} candidates bit-equal; combine "
+          f"{comb_ms:.4f} ms device ({comb_call:.4f} a wrapper call; plain {comb_plain:.3f}, "
+          f"bound {cb:.4f} by {cby}); dispatch "
+          f"launches {json.dumps(counts)}; {json.dumps({'minplus': rows_out, 'row_close': rc_rows})}")
+    return counts, entry, {"minplus": rows_out, "row_close": rc_rows, "phase_s": phase_s,
+                           "errors": err}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3138,8 +3433,9 @@ def run(scratch: Path) -> int:
     # The folds' hottest loops in the SASS: instructions a candidate (one FADD
     # a tropical candidate), the premise of the operations bound below, and
     # what the loop around it (a k slice: copies, barrier) adds.
-    for src_, k in (("fw_round", "fw_update<0,float>"), ("minplus", "minplus<0,true>"),
-                    ("minplus", "minplus_argmin<0,true>"), ("minplus", "minplus_pred<0,true>"),
+    for src_, k in (("fw_round", "fw_update<0,float>"), ("minplus", "minplus<0,true,64>"),
+                    ("minplus", "minplus_argmin<0,true,64>"),
+                    ("minplus", "minplus_pred<0,true,64>"), ("minplus", "minplus<0,true,16>"),
                     ("row_close", "row_close<0,64>"), ("row_close", "row_close<0,16>"),
                     ("row_close", "row_close_pred<0,64>"), ("row_close", "row_close_pred<0,16>")):
         loops = sass_loops(_build, src_, k)
@@ -3905,6 +4201,27 @@ def run(scratch: Path) -> int:
     # points refusing defective plans, and the donation check at full size.
     drive_analysis(card, torch.from_numpy(h16_np).to(dev))
 
+    elapsed("phase 14")
+    # 14 (run here, before the kernels line). The product kernels' tile
+    # lattice: every candidate against the plain version, the tuners, the
+    # tuned dispatch, default and tuned ms beside the bounds.
+    tune_counts, combine_entry, tuned = drive_tuning(card, scratch, h_dev, lane_rate)
+    for entry in lines:
+        if entry["name"] in ("minplus", "row_close"):
+            entry["tuned_shapes"] = tuned[entry["name"]]
+        if entry["name"] == "minplus_argmin":
+            entry["tuned_shapes"] = {lbl: v["minplus_argmin"]
+                                     for lbl, v in tuned["minplus"].items()}
+        if entry["name"] in ("minplus", "minplus_argmin", "row_close"):
+            entry["launches_by_path"]["phase 14 tuned dispatches"] = {
+                k: v for k, v in tune_counts.items()
+                if k in ((entry["name"], "minplus_combine") if entry["name"] != "row_close"
+                         else ("row_close",))}
+    combine_entry["launches_by_path"].update(
+        {lbl: {"minplus_combine": c["minplus_combine"]} for lbl, c in path_launches.items()
+         if c.get("minplus_combine")})
+    lines.append(combine_entry)
+
     elapsed("the kernels line")
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {
@@ -3916,6 +4233,8 @@ def run(scratch: Path) -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--times":
         sys.exit(times(Path(sys.argv[2])))
+    if len(sys.argv) == 3 and sys.argv[1] == "--serve":
+        sys.exit(serve_rates(Path(sys.argv[2])))
     if sys.argv[1:2] == ["--profiler-study"] and len(sys.argv) <= 3:
         sys.exit(profiler_study(Path(sys.argv[2]) if len(sys.argv) == 3
                                 else ROOT / "build" / "profiler_study.json"))

@@ -18,7 +18,8 @@ own (``minplus.launch_plan``, ``fw_round.launch_plan``,
   (``kernels.ref``) and the plain version; on a card, the same case
   through the CUDA kernel with a canary-seeded output;
 * ``lattice``   — the JAX package's shape lattice plus the shapes where the
-  CUDA plans change, and a case for every ``fwround`` autotune candidate;
+  CUDA plans change, and a case for every autotune candidate (``fwround``
+  block sizes, the product and row-close tile lattices);
 * ``mutants``   — plan mutants with one defect each and a clean control,
   their C forms for the card, and the seeded-defect kernels of
   ``csrc/mutants.cu``;
@@ -27,13 +28,15 @@ own (``minplus.launch_plan``, ``fw_round.launch_plan``,
 
 from .intercept import Launch, capture, to_meta
 from .simulate import Machine
-from .verify import KINDS, Problem, check_plan, verify_case, verify_case_cuda
+from .verify import KINDS, Problem, check_plan, check_static, verify_case, verify_case_cuda
 from .lattice import (
     Case,
     autotune_cases,
     case_for_fw_round_params,
+    case_for_minplus_params,
     case_for_row_close_params,
     default_cases,
+    lattice,
 )
 from .mutants import Mutant, control_case, mutant_cases
 from . import checker as _checker  # noqa: F401  (registers "kernel-grid")
@@ -46,13 +49,16 @@ __all__ = [
     "KINDS",
     "Problem",
     "check_plan",
+    "check_static",
     "verify_case",
     "verify_case_cuda",
     "Case",
     "default_cases",
     "autotune_cases",
     "case_for_fw_round_params",
+    "case_for_minplus_params",
     "case_for_row_close_params",
+    "lattice",
     "Mutant",
     "control_case",
     "mutant_cases",

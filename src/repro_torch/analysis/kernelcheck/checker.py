@@ -1,9 +1,15 @@
 """The registered ``kernel-grid`` checker (tier B, gating).
 
 The counterpart of ``repro.analysis.kernelcheck.checker``.  It proves every
-lattice case (``lattice.default_cases`` and ``autotune_cases``) through the
-plan verifier on the CPU, and proves the verifier itself: every plan mutant
-must be flagged with its expected kind and the control must verify clean.
+lattice case (``lattice.lattice``: ``default_cases`` and ``autotune_cases``,
+each name once) through the plan verifier on the CPU, and proves the
+verifier itself: every plan mutant must be flagged with its expected kind
+and the control must verify clean.  Its **static tier** (``static = True``,
+which the tree test sets) checks only the static theorems of every
+case's captured plan and runs no interpreter and no card: the tests prove
+each case through the interpreter one by one
+(``tests/test_torch_kernelcheck.py``), so the tree check need not run them
+again.
 With a CUDA device it also runs the lattice through the CUDA kernels (each
 output seeded with a canary; each result bit-equal to the plain version)
 and the seeded-defect kernels of ``csrc/mutants.cu``.  Without one, that
@@ -64,6 +70,9 @@ class KernelGridChecker(Checker):
         "caught; on a card the kernels themselves run the lattice"
     )
     require_cuda = False
+    static = False
+    # The names of the cases the last run proved, in order.
+    last_cases: tuple = ()
 
     _KERNEL_SOURCES = tuple(_path(m) for m in ("minplus", "fw_block", "fw_round",
                                                  "row_close"))
@@ -76,14 +85,25 @@ class KernelGridChecker(Checker):
             return
         import torch
 
-        from .lattice import GROUPS, autotune_cases, default_cases
+        from .lattice import GROUPS, lattice
         from .mutants import control_case, kernel_mutants, mutant_cases, verify_kernel_mutant
-        from .verify import verify_case, verify_case_cuda
+        from .verify import check_static, verify_case, verify_case_cuda
 
         def finding(module: str, message: str) -> Finding:
             return Finding(check=self.name, path=_path(module), line=0, message=message)
 
-        cases = default_cases() + autotune_cases()
+        cases = lattice()
+        self.last_cases = tuple(c.name for c in cases)
+        if self.static:
+            counted: Dict[str, int] = {}
+            for case in cases:
+                group = GROUPS[case.kernel]
+                counted[group] = counted.get(group, 0) + 1
+                for p in check_static(case):
+                    yield finding(case.module, f"{p.kind}: {p.where}: {p.message}")
+            print(f"analyze: [{self.name}] {json.dumps({'static_cases': counted}, sort_keys=True)}",
+                  file=sys.stderr)
+            return
         summary: Dict[str, dict] = {"cpu_cases": {}, "cuda_cases": {}, "canary_hits": {},
                                     "cuda_launches": {}, "mutants": {}, "kernel_mutants": {}}
         for case in cases:

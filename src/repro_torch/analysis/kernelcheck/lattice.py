@@ -14,11 +14,16 @@ multiple of 4 (the ring's ``ny``, read from a copy and from the storage
 itself), the short-row ``spd_features`` shape, and ``minplus_pred`` at
 the pred round's stages 2 and 3.
 
-``case_for_fw_round_params`` builds a case from an autotune candidate, so
-the tests can prove every block size the port's tuner may propose
-(``autotune._FW_ROUND_BLOCKS``) safe.  ``case_for_row_close_params`` keeps
-the JAX package's signature; the port's ``row_close`` has no tuned knob,
-so ``params`` only names the case.
+``case_for_fw_round_params``, ``case_for_minplus_params`` and
+``case_for_row_close_params`` build a case from an autotune candidate, so
+the verifier proves every plan the port's tuners may propose safe
+(:func:`autotune_cases`): every ``fwround`` block size, and every tile and
+k split of the product and row-close lattices (``autotune.candidates``,
+``_row_close_candidates``).  A case carries its candidate's knobs
+(``Case.params``, the kernel's own ``tile_rows`` and ``chunks``) to the
+wrapper; the JAX package's Pallas knobs (``bn``, ``bk``, ``kc``) only
+name a case.  :func:`lattice` is the set the ``kernel-grid`` check proves:
+each case once, by name.
 """
 
 from __future__ import annotations
@@ -36,16 +41,27 @@ __all__ = [
     "GROUPS",
     "default_cases",
     "case_for_fw_round_params",
+    "case_for_minplus_params",
     "case_for_row_close_params",
     "autotune_cases",
+    "lattice",
+    "LATTICE_CHUNKS",
 ]
 
-# The kernel table's six rows, by the wrapper names that report to them.
+# The chunk counts the verifier proves for every tile of the product and
+# row-close lattices: every count ``autotune`` proposes for k up to 16384
+# (its powers of two while a chunk holds 256 k), and 3 (the fill rule's
+# counts need not be powers of two).
+LATTICE_CHUNKS = (1, 2, 3, 4, 8, 16, 32, 64)
+
+# The kernel table's six rows, by the wrapper names that report to them (the
+# product's split-k combine belongs to its row).
 GROUPS = {
     "fw_round": "fw_round",
     "minplus": "minplus",
     "minplus_argmin": "minplus_argmin",
     "minplus_pred": "minplus_argmin",
+    "minplus_combine": "minplus",
     "fw_block": "fw_block",
     "fw_block_pred": "fw_block_pred",
     "row_close": "row_close",
@@ -61,7 +77,9 @@ class Case:
     ``kernel`` names the wrapper (a key of :data:`GROUPS`), ``module`` its
     kernel module; ``inputs()`` builds the CPU operands (a dict of the
     wrapper's arguments).  ``padded`` marks a case that exercises padding
-    (a mismatch there is reported as ``padding``).  ``plan_edit`` and
+    (a mismatch there is reported as ``padding``).  ``params`` are the
+    knobs the CUDA wrapper takes (an autotune candidate's ``tile_rows`` and
+    ``chunks``; the plain version takes none).  ``plan_edit`` and
     ``options`` exist for the mutants: an edit of the captured plan, and
     keyword options of the interpreter."""
 
@@ -73,6 +91,7 @@ class Case:
     shape: tuple = ()
     plan_edit: Optional[Callable] = None
     options: dict = field(default_factory=dict)
+    params: dict = field(default_factory=dict)
 
 
 def _mat(rng: np.random.Generator, shape, sr: Semiring) -> torch.Tensor:
@@ -111,7 +130,7 @@ def _init_pred(d: torch.Tensor, sr: Semiring) -> torch.Tensor:
 
 def _minplus_case(name: str, m: int, k: int, n: int, *, g: int = 0, accumulate: bool = False,
                   argmin: bool = False, sr: Semiring = TROPICAL, seed: int = 0,
-                  padded: bool = False) -> Case:
+                  padded: bool = False, params: Optional[dict] = None) -> Case:
     def inputs():
         rng = np.random.default_rng(seed)
         xs = (g, m, k) if g else (m, k)
@@ -122,7 +141,22 @@ def _minplus_case(name: str, m: int, k: int, n: int, *, g: int = 0, accumulate: 
         return dict(x=x, y=y, a=a, semiring=sr)
 
     return Case(name=name, kernel="minplus_argmin" if argmin else "minplus", module="minplus",
-                inputs=inputs, padded=padded, shape=(g, m, k, n))
+                inputs=inputs, padded=padded, shape=(g, m, k, n), params=dict(params or {}))
+
+
+def case_for_minplus_params(params: dict, m: int, k: int, n: int, *, g: int = 0,
+                            seed: int = 0) -> Case:
+    """Verification case for one ``autotune.candidates`` entry: the fused
+    accumulate, the exact dispatch the tuner measures, with the
+    candidate's knobs."""
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.minplus import launch_plan
+
+    tag = ",".join(f"{key}={params[key]}" for key in sorted(params))
+    plan = launch_plan(g or 1, m, k, n, **autotune.knobs("cuda", params))
+    return _minplus_case(f"minplus/autotune[{tag}]@m{m}k{k}n{n}g{g}", m, k, n, g=g,
+                         accumulate=True, seed=seed, params=autotune.knobs("cuda", params),
+                         padded=bool(m % plan.rows or n % plan.cols or k % plan.depth))
 
 
 def _strided_y_case(name: str, m: int, k: int, n: int, *, seed: int) -> Case:
@@ -154,7 +188,8 @@ def _spd_case(name: str, lms: int, n: int, *, seed: int) -> Case:
                 shape=(0, lms, n, n))
 
 
-def _pred_case(name: str, n: int, b: int, *, stage: int, seed: int) -> Case:
+def _pred_case(name: str, n: int, b: int, *, stage: int, seed: int,
+               params: Optional[dict] = None) -> Case:
     """``minplus_pred`` as the pred round launches it, on strided panels of
     the state: stage 3 (N, B) x (B, N) accumulate into D, stage 2 (N, B) x
     (B, B) accumulate into the column panel."""
@@ -171,7 +206,7 @@ def _pred_case(name: str, n: int, b: int, *, stage: int, seed: int) -> Case:
                     pa=p[:, o:o + b], k_offset=o, j_offset=o, semiring=TROPICAL)
 
     return Case(name=name, kernel="minplus_pred", module="minplus", inputs=inputs, padded=True,
-                shape=(0, n, b, n if stage == 3 else b))
+                shape=(0, n, b, n if stage == 3 else b), params=dict(params or {}))
 
 
 # ---------------------------------------------------------------------------
@@ -226,7 +261,7 @@ def _gather_rows(r: int, n: int) -> torch.Tensor:
 
 
 def _row_close_case(name: str, r: int, n: int, *, mode: str = "row_close", seed: int = 0,
-                    sr: Semiring = TROPICAL) -> Case:
+                    sr: Semiring = TROPICAL, params: Optional[dict] = None) -> Case:
     def inputs():
         rng = np.random.default_rng(seed)
         d = _dist(rng, (n, n), sr)
@@ -238,16 +273,20 @@ def _row_close_case(name: str, r: int, n: int, *, mode: str = "row_close", seed:
         return out
 
     return Case(name=name, kernel=mode, module="row_close", inputs=inputs, padded=True,
-                shape=(r, n))
+                shape=(r, n), params=dict(params or {}))
 
 
 def case_for_row_close_params(params: dict, r: int, n: int, *, track: bool = False,
                               seed: int = 0, sr: Semiring = TROPICAL) -> Case:
-    """The row pass for r gathered rows of an (n, n) matrix; ``params``
-    names it."""
+    """The row pass for r gathered rows of an (n, n) matrix with the
+    candidate's knobs (``tile_rows``, ``chunks``); ``params`` names it (the
+    JAX package's Pallas knobs only name it)."""
+    from repro_torch.kernels import autotune
+
     tag = ",".join(f"{key}={params[key]}" for key in sorted(params))
     return _row_close_case(f"row_close/[{tag}]@r{r}n{n}" + ("+track" if track else ""), r, n,
-                           mode="row_close_argmin" if track else "row_close", seed=seed, sr=sr)
+                           mode="row_close_argmin" if track else "row_close", seed=seed, sr=sr,
+                           params=autotune.knobs("cuda", params))
 
 
 # ---------------------------------------------------------------------------
@@ -307,13 +346,82 @@ def default_cases() -> List[Case]:
     return reference_cases() + port_cases()
 
 
+def _padded_split(rows: int, chunks: int, track: bool):
+    """(m or r, k, n) of the smallest shape where the lattice's tile of
+    ``rows`` rows pads its last row and column tile and ``chunks`` chunks
+    of whole slices split k, the last one ragged: two row tiles up to 4
+    chunks, one (5 rows) above, where the combine's row-by-row
+    interpretation would cost the most."""
+    from repro_torch.kernels.minplus import tile
+
+    _, cols, depth = tile(rows, track)
+    return (rows + 3 if chunks <= 4 else 5,
+            (chunks - 1) * depth + 3 if chunks > 1 else depth + 3, cols + 3)
+
+
 def autotune_cases() -> List[Case]:
-    """One case for every block size the port's ``fwround`` tuner can
-    propose: ``autotune._FW_ROUND_BLOCKS`` and, for graphs whose bucket is
-    below 32 nodes, the bucket itself (``tune_fw_round``'s fallback), each
-    at N = 2B, last pivot."""
+    """One case for every plan the port's tuners can propose:
+
+    * every ``fwround`` block size: ``autotune._FW_ROUND_BLOCKS`` and, for
+      graphs whose bucket is below 32 nodes, the bucket itself
+      (``tune_fw_round``'s fallback), each at N = 2B, last pivot;
+    * every product candidate (``autotune.candidates``: tile rows 16, 32,
+      64 by :data:`LATTICE_CHUNKS`), the fused accumulate at the smallest
+      shape that pads its tiles and splits k; the witness and pred modes of
+      each tile split over 3 chunks (the tuner's winner serves them too);
+    * every row-close candidate (``_row_close_candidates``: the same knobs
+      on the row pass), and its witness and pred modes split, each tile.
+    """
     from repro_torch.kernels import autotune
 
     blocks = sorted(set(autotune._FW_ROUND_BLOCKS)
                     | {min(autotune.bucket(v), 32) for v in range(1, 32)})
-    return [case_for_fw_round_params(b, 2 * b, seed=40 + i) for i, b in enumerate(blocks)]
+    out = [case_for_fw_round_params(b, 2 * b, seed=40 + i) for i, b in enumerate(blocks)]
+    seed = 60
+    for rows in (16, 32, 64):
+        for c in LATTICE_CHUNKS:
+            m, k, n = _padded_split(rows, c, False)
+            out.append(case_for_minplus_params({"tile_rows": rows, "chunks": c}, m, k, n,
+                                               seed=seed))
+            seed += 1
+        knobs = {"tile_rows": rows, "chunks": 3}
+        m, k, n = _padded_split(rows, 3, True)
+        out.append(_minplus_case(f"minplus_argmin/autotune[chunks=3,tile_rows={rows}]"
+                                 f"@m{m}k{k}n{n}g2", m, k, n, g=2, accumulate=True, argmin=True,
+                                 seed=seed, padded=True, params=knobs))
+        b = k                     # the pred round's stage 3 at B = k: three chunks
+        out.append(_pred_case(f"minplus_pred/autotune[chunks=3,tile_rows={rows}]"
+                              f"@n{2 * b + 5}b{b}", 2 * b + 5, b, stage=3, seed=seed + 1,
+                              params=knobs))
+        seed += 2
+    for rows in (16, 32, 64):
+        for c in LATTICE_CHUNKS:
+            r, k, n = _padded_split(rows, c, False)
+            n = k if c > 1 else n         # the row pass folds k = n
+            out.append(case_for_row_close_params({"tile_rows": rows, "chunks": c}, r, n,
+                                                 seed=seed))
+            seed += 1
+        knobs = {"tile_rows": rows, "chunks": 3}
+        r, n, _ = _padded_split(rows, 3, True)
+        out.append(_row_close_case(f"row_close_argmin/autotune[chunks=3,tile_rows={rows}]"
+                                   f"@r{r}n{n}", r, n, mode="row_close_argmin", seed=seed,
+                                   params=knobs))
+        out.append(_row_close_case(f"row_close_pred/autotune[chunks=3,tile_rows={rows}]"
+                                   f"@r{r}n{n}", r, n, mode="row_close_pred", seed=seed + 1,
+                                   params=knobs))
+        seed += 2
+    return out
+
+
+def lattice() -> List[Case]:
+    """The cases the ``kernel-grid`` check proves: :func:`default_cases`
+    and :func:`autotune_cases`, each name once (an autotune case that
+    names a default case, such as ``fw_round/b256@n512o256g0``, is that
+    case)."""
+    out = default_cases()
+    names = {c.name for c in out}
+    for c in autotune_cases():
+        if c.name not in names:
+            names.add(c.name)
+            out.append(c)
+    return out

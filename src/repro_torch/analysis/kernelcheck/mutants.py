@@ -14,7 +14,10 @@ defect-free control verifies clean:
 * ``bounds``   — a ``row_close`` gather id of n; ``fw_round``'s scratch
   pitch below N;
 * ``padding``  — k past the end staged as 0.0 in place of the semiring zero;
-* ``uninit``   — the split-k merge folding a partial plane no CTA wrote.
+* ``uninit``   — the split-k merge folding a partial plane no CTA wrote;
+* the product's split-k combine: a missed chunk (the plan one chunk
+  short, ``coverage``) and the chunks combined in descending order (a
+  witness tie then goes to a larger k, ``mismatch``).
 
 Where the defect is a field of the plan the C entry point takes, the
 mutant carries that plan (``c_form``): ``refused_on_card`` hands it to the
@@ -42,7 +45,8 @@ import torch
 
 from repro_torch.core.semiring import TROPICAL
 
-from .lattice import Case, _mat, _row_close_case, case_for_fw_round_params, reference_cases
+from .lattice import (Case, _mat, _minplus_case, _row_close_case, case_for_fw_round_params,
+                      reference_cases)
 from .verify import Problem, _compare, recording_empty, to_device
 
 __all__ = ["Mutant", "mutant_cases", "control_case", "refused_on_card", "KernelMutant",
@@ -80,12 +84,35 @@ def _with_id_n(inputs):
     return make
 
 
+def _tied(inputs):
+    """The case's operands rounded to whole numbers in [1, 4] (the zero
+    kept): candidates tie across k chunks, so the combine's chunk order
+    decides the witness."""
+    def make():
+        i = dict(inputs())
+        for key in ("x", "y", "a"):
+            t = i.get(key)
+            if t is not None:
+                i[key] = torch.where(torch.isinf(t), t, torch.remainder(t.floor(), 4) + 1)
+        return i
+    return make
+
+
+def _split_witness() -> Case:
+    """A witness product split over three chunks of its 64-row tile, no
+    padding (64 x 96 x 64), with ties."""
+    base = _minplus_case("minplus_argmin/split-ties", 64, 96, 64, accumulate=True, argmin=True,
+                         seed=50, params={"tile_rows": 64, "chunks": 3})
+    return replace(base, inputs=_tied(base.inputs))
+
+
 def mutant_cases() -> List[Mutant]:
     aligned = _ref_case("minplus/aligned")          # (16, 32) x (32, 256): 2 column tiles
     padded = _ref_case("minplus/padded")            # (13, 21) x (21, 130): ny = 132
     split = _row_close_case("row_close/r16n512-split", 16, 512, seed=27)    # 2 k chunks
     gather = _ref_case("row_close/[bk=8,bn=128,kc=8]@r4n16")
     rnd = case_for_fw_round_params(64, 192, o=64, seed=25)
+    tied = _split_witness()
     return [
         Mutant(_variant(split, "mutant/overlapping-k-chunk",
                         options=dict(k_ranges=[range(0, 256), range(224, 512)])),
@@ -117,6 +144,12 @@ def mutant_cases() -> List[Mutant]:
         Mutant(_variant(split, "mutant/unwritten-partial", options=dict(planes=3)),
                expect="uninit",
                c_form=lambda p: p._replace(chunks=p.chunks + 1)),
+        Mutant(_variant(tied, "mutant/combine-missed-chunk",
+                        plan_edit=lambda p: p._replace(chunks=p.chunks - 1)),
+               expect="coverage", c_form=lambda p: p._replace(chunks=p.chunks - 1)),
+        Mutant(_variant(tied, "mutant/combine-chunks-descending",
+                        options=dict(combine_planes=[2, 1, 0])),
+               expect="mismatch"),
     ]
 
 
@@ -136,7 +169,9 @@ def _call_with_plan(case: Case, i: dict, plan):
     if case.module == "minplus":
         mp = _kernel_mod("minplus")
         mode = mp.MODES.index(case.kernel)
-        return mp._launch(case.kernel, mode, i["x"], i["y"], i.get("a"), sr, plan=plan)
+        return mp._launch(case.kernel, mode, i["x"], i["y"], i.get("a"), sr, i.get("px"),
+                          i.get("py"), i.get("pa"), i.get("k_offset", 0), i.get("j_offset", 0),
+                          plan=plan)
     if case.module == "row_close":
         return _kernel_mod("row_close")._launch(case.kernel, i["d"], i["rows"], i.get("pred"),
                                                 sr, plan=plan)

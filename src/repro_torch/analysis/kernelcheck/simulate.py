@@ -18,7 +18,8 @@ writes, mirroring the index arithmetic of ``csrc/*.cu``:
   ``ny``), k past the end staged as the semiring zero (value folds) or
   skipped (witness folds);
 * the epilogues: the pred rule of ``minplus_pred``, ``row_close``'s
-  finish, the split-k partial planes and their merge;
+  finish, the split-k partial planes and their merge (``row_close_merge``)
+  or combine (``minplus_combine``);
 * the closures: each row owned by one CTA (``closure_plan.rows_of``, or
   the grid closure's rows c, c + C, ...), each column by one thread, B
   sequential pivot steps;
@@ -245,18 +246,28 @@ def run_minplus(mc: Machine, plan, x: torch.Tensor, y: torch.Tensor,
                 a: Optional[torch.Tensor] = None, px=None, py=None, pa=None, *,
                 mode: str = "minplus", semiring="tropical", k_offset: int = 0,
                 j_offset: int = 0, fill_k: Optional[float] = None,
-                col_tile: Optional[Callable[[int], int]] = None):
+                col_tile: Optional[Callable[[int], int]] = None,
+                k_ranges: Optional[List[range]] = None,
+                combine_planes: Optional[List[int]] = None):
     """Run a ``minplus`` launch plan: (z, out) shaped as the wrapper's
     outputs (out None in value mode).  ``y`` is what the ring reads (the
-    wrapper's ``ring_rows(y)``).  ``fill_k`` and ``col_tile`` exist for the
-    mutants: the staged value of k past the end, and the column tile a
-    CTA's grid x maps to."""
+    wrapper's ``ring_rows(y)``).  A split plan (``chunks`` > 1) runs the
+    product's CTAs chunk by chunk into strict partial planes, then
+    ``minplus_combine``.  ``fill_k``, ``col_tile``, ``k_ranges`` and
+    ``combine_planes`` exist for the mutants: the staged value of k past
+    the end, the column tile a CTA's grid x maps to, the k each chunk folds
+    (default ``plan.k_of``) and the planes the combine folds, in order."""
     sr = get_semiring(semiring)
     batched = x.ndim == 3
     g = x.shape[0] if batched else 1
     m, k = x.shape[-2:]
     n = y.shape[-1]
     track = mode != "minplus"
+    chunks = getattr(plan, "chunks", 1)
+    ranges = (k_ranges if k_ranges is not None
+              else [plan.k_of(c, k) for c in range(chunks)] if chunks > 1 else [range(k)])
+    split = len(ranges) > 1
+    planes = list(range(len(ranges))) if combine_planes is None else list(combine_planes)
     xb, xo = mc.input("x", x)
     yb, yo = mc.input("y", y)
     xgs, xrs = (x.stride(0) if batched else 0), x.stride(-2)
@@ -265,6 +276,11 @@ def run_minplus(mc: Machine, plan, x: torch.Tensor, y: torch.Tensor,
     xt = mc.output("xt", g * k * mp, torch.float32)
     z = mc.output("z", g * m * n, torch.float32)
     out = mc.output("out", g * m * n, torch.int32) if track else None
+    pz = pk = None
+    if split:
+        pz = mc.output("partial values", len(ranges) * g * m * n, torch.float32, strict=True)
+        if track:
+            pk = mc.output("partial k", len(ranges) * g * m * n, torch.int32, strict=True)
     ab = ao = None
     if a is not None:
         ab, ao = mc.input("a", a)
@@ -275,6 +291,40 @@ def run_minplus(mc: Machine, plan, x: torch.Tensor, y: torch.Tensor,
         pab = pao = None
         if pa is not None:
             pab, pao = mc.input("pa", pa)
+
+    def store(cid: int, bz: int, r2: torch.Tensor, c2: torch.Tensor, val: torch.Tensor,
+              ks: Optional[torch.Tensor], what: str) -> None:
+        """Z, and K* or the pred rule's predecessors, of the outputs
+        (bz, r2, c2) (1-D index tensors) from their values and winners."""
+        e = (bz * m + r2) * n + c2
+        mc.write(z, e, val, cid, what)
+        if mode == "minplus_argmin":
+            mc.write(out, e, ks, cid, what)
+        elif mode == "minplus_pred":
+            ks = ks.long()
+            p = torch.full(ks.shape, -1, dtype=torch.int32)
+            kept = ks < 0
+            if pab is not None and bool(kept.any()):
+                pags, pars = (pa.stride(0) if batched else 0), pa.stride(-2)
+                v = mc.read(pab, pao + bz * pags + r2[kept] * pars + c2[kept], cid, "pa")
+                if v is None:
+                    return
+                p[kept] = v
+            own = ~kept & (ks + k_offset == c2 + j_offset)
+            via = ~kept & ~own
+            if bool(own.any()):
+                pxgs, pxrs = (px.stride(0) if batched else 0), px.stride(-2)
+                v = mc.read(pxb, pxo + bz * pxgs + r2[own] * pxrs + ks[own], cid, "px")
+                if v is None:
+                    return
+                p[own] = v
+            if bool(via.any()):
+                pygs, pyrs = (py.stride(0) if batched else 0), py.stride(-2)
+                v = mc.read(pyb, pyo + bz * pygs + ks[via] * pyrs + c2[via], cid, "py")
+                if v is None:
+                    return
+                p[via] = v
+            mc.write(out, e, p, cid, "pred epilogue")
 
     if k:
         mc.begin("kmajor")
@@ -300,59 +350,82 @@ def run_minplus(mc: Machine, plan, x: torch.Tensor, y: torch.Tensor,
 
     mc.begin(mode)
     if _grid_dims_ok(mc, mode, plan.grid):
-        for cid, bx, by, bz in _ctas(plan.grid):
+        for cid, bx, by, bzq in _ctas(plan.grid):
+            bz, q = bzq % g, bzq // g
+            if q >= len(ranges):
+                continue
+            k0, kn = ranges[q].start, len(ranges[q])
             m0 = by * plan.rows
             n0 = (bx if col_tile is None else col_tile(bx)) * plan.cols
             rr = torch.arange(m0, m0 + plan.rows)
             cc = torch.arange(n0, n0 + plan.cols)
             rv, cv = rr[rr < m], cc[cc < n]
             acc = torch.full((plan.rows, plan.cols), sr.zero)
-            if a is not None and rv.numel() and cv.numel():
+            if a is not None and not split and rv.numel() and cv.numel():
                 vals = mc.read(ab, ao + bz * ags + rv[:, None] * ars + cv[None, :], cid,
                                "accumulator")
                 if vals is None:
                     continue
                 acc[: rv.numel(), : cv.numel()] = vals.reshape(rv.numel(), cv.numel())
-            got = _fold(mc, sr, cid, xt, bz * k * mp, mp, mp, yb, yo + bz * ygs, yrs, plan.ny,
-                        m0, n0, k, plan.rows, plan.cols, plan.depth, acc, track, fill_k,
-                        "ring")
+            got = _fold(mc, sr, cid, xt, (bz * k + k0) * mp, mp, mp, yb,
+                        yo + bz * ygs + k0 * yrs, yrs, plan.ny, m0, n0, kn, plan.rows,
+                        plan.cols, plan.depth, acc, track, fill_k, "ring")
             if got is None:
                 continue
             val, kst = got
             if not (rv.numel() and cv.numel()):
                 continue
-            val = val[: rv.numel(), : cv.numel()]
-            e = (bz * m + rv[:, None]) * n + cv[None, :]
-            mc.write(z, e, val, cid, "store")
-            if mode == "minplus_argmin":
-                mc.write(out, e, kst[: rv.numel(), : cv.numel()], cid, "store")
-            elif mode == "minplus_pred":
-                ks = kst[: rv.numel(), : cv.numel()].long()
-                r2, c2 = rv[:, None].expand_as(ks), cv[None, :].expand_as(ks)
-                p = torch.full(ks.shape, -1, dtype=torch.int32)
-                kept = ks < 0
-                if pab is not None and bool(kept.any()):
-                    pags, pars = (pa.stride(0) if batched else 0), pa.stride(-2)
-                    v = mc.read(pab, pao + bz * pags + r2[kept] * pars + c2[kept], cid, "pa")
-                    if v is None:
-                        continue
-                    p[kept] = v
-                own = ~kept & (ks + k_offset == c2 + j_offset)
-                via = ~kept & ~own
-                if bool(own.any()):
-                    pxgs, pxrs = (px.stride(0) if batched else 0), px.stride(-2)
-                    v = mc.read(pxb, pxo + bz * pxgs + r2[own] * pxrs + ks[own], cid, "px")
-                    if v is None:
-                        continue
-                    p[own] = v
-                if bool(via.any()):
-                    pygs, pyrs = (py.stride(0) if batched else 0), py.stride(-2)
-                    v = mc.read(pyb, pyo + bz * pygs + ks[via] * pyrs + c2[via], cid, "py")
-                    if v is None:
-                        continue
-                    p[via] = v
-                mc.write(out, e, p, cid, "pred epilogue")
+            r2 = rv[:, None].expand(rv.numel(), cv.numel()).reshape(-1)
+            c2 = cv[None, :].expand(rv.numel(), cv.numel()).reshape(-1)
+            val = val[: rv.numel(), : cv.numel()].reshape(-1)
+            if track:
+                kst = kst[: rv.numel(), : cv.numel()].reshape(-1)
+            if not split:
+                store(cid, bz, r2, c2, val, kst, "store")
+                continue
+            e = ((q * g + bz) * m + r2) * n + c2
+            mc.write(pz, e, val, cid, "partial")
+            if track:
+                mc.write(pk, e, torch.where(kst < 0, kst, kst + k0), cid, "partial")
     mc.end()
+    if split and not mc.failed():
+        mc.begin("minplus_combine")
+        dims = tuple(plan.combine_grid)
+        if _grid_dims_ok(mc, "minplus_combine", dims):
+            for cid, bx, by, _ in _ctas(dims):
+                j = torch.arange(bx * 256, min(n, bx * 256 + 256))
+                if not j.numel():
+                    continue
+                for gr in range(by, g * m, dims[1]):
+                    bz, r = divmod(gr, m)
+                    r2 = torch.full_like(j, r)
+                    if a is None:
+                        v = torch.full((j.numel(),), sr.zero)
+                    else:
+                        v = mc.read(ab, ao + bz * ags + r * ars + j, cid, "combine start value")
+                        if v is None:
+                            break
+                    kst = torch.full((j.numel(),), -1, dtype=torch.int32) if track else None
+                    ok = True
+                    for q in planes:
+                        e = (q * g * m + gr) * n + j
+                        pv = mc.read(pz, e, cid, "combine")
+                        if pv is None:
+                            ok = False
+                            break
+                        if not track:
+                            v = sr.add(v, pv)
+                            continue
+                        pkv = mc.read(pk, e, cid, "combine")
+                        if pkv is None:
+                            ok = False
+                            break
+                        won = sr.better(pv, v)
+                        v = torch.where(won, pv, v)
+                        kst = torch.where(won, pkv, kst)
+                    if ok:
+                        store(cid, bz, r2, j, v, kst, "combine")
+        mc.end()
     shape = x.shape[:-1] + (n,)
     zt = z.data.reshape(shape)
     return zt, (out.data.reshape(shape) if out is not None else None)

@@ -6,14 +6,20 @@ problem kinds (:data:`KINDS`).
 **Static** (:func:`check_plan`), decided from the plan and the operands'
 shapes and strides alone:
 
-* **race** — no two CTAs write one output element (the product tiles, the
-  closure's rows and columns); split-k chunks fold each k of [0, n) once;
+* **race** — no two CTAs write one output element (the product tiles of
+  each k chunk, the closure's rows and columns); split-k chunks
+  (``row_close``'s and the product's) fold each k once, and the combine
+  folds each chunk's partials once;
 * **coverage** — the tiles cover the output exactly (no hole), the ring's
-  column limit ``ny`` reaches N, the grids cover their scratch;
+  column limit ``ny`` reaches N, the grids cover their scratch and the
+  combine's grid its outputs;
 * **bounds** — grid y and z <= 65535, shared bytes <= 227 KB a CTA,
   threads whole warps, scratch pitches as the C entry points require
   (16-byte rows, X^T's pitch >= M, ``ny`` a multiple of 4 within the row
-  pitch and the storage, the closure's slots and lines).
+  pitch and the storage, the closure's slots and lines, the partials).
+
+:func:`check_static` runs only these (the ``kernel-grid`` check's static
+tier).
 
 **Dynamic** (:func:`verify_case`), by running the plan on the CPU
 (``simulate``) and comparing with ``repro_torch.kernels.ref`` and the
@@ -47,7 +53,8 @@ from .intercept import capture
 from .simulate import (INT_CANARY, Machine, closure_owners, run_closure, run_fw_round,
                        run_minplus, run_row_close)
 
-__all__ = ["Problem", "KINDS", "check_plan", "plan_of", "verify_case", "verify_case_cuda",
+__all__ = ["Problem", "KINDS", "check_plan", "check_static", "plan_of", "verify_case",
+           "verify_case_cuda",
            "FAMILY", "SHARED_BYTES", "recording_empty", "to_device", "canary_block"]
 
 KINDS = ("race", "bounds", "coverage", "padding", "uninit", "mismatch")
@@ -87,15 +94,17 @@ def _g_loop(fn, *ts):
 
 class _Minplus:
     @staticmethod
-    def cuda(kernel, i):
+    def cuda(kernel, i, params=None):
         m = _mod("minplus")
         sr = i["semiring"]
+        kw = dict(params or {})
         if kernel == "minplus":
-            return (m.minplus_cuda(i["x"], i["y"], i.get("a"), semiring=sr),)
+            return (m.minplus_cuda(i["x"], i["y"], i.get("a"), semiring=sr, **kw),)
         if kernel == "minplus_argmin":
-            return m.minplus_argmin_cuda(i["x"], i["y"], i.get("a"), semiring=sr)
+            return m.minplus_argmin_cuda(i["x"], i["y"], i.get("a"), semiring=sr, **kw)
         return m.minplus_pred_cuda(i["x"], i["y"], i["px"], i["py"], i.get("a"), i.get("pa"),
-                                   k_offset=i["k_offset"], j_offset=i["j_offset"], semiring=sr)
+                                   k_offset=i["k_offset"], j_offset=i["j_offset"], semiring=sr,
+                                   **kw)
 
     @staticmethod
     def plain(kernel, i):
@@ -140,7 +149,7 @@ class _Minplus:
         return (z,) if out is None else (z, out)
 
     @staticmethod
-    def static(kernel, plan, i, col_tile=None, **_):
+    def static(kernel, plan, i, col_tile=None, k_ranges=None, combine_planes=None, **_):
         out: List[Tuple[str, str]] = []
         x = i["x"]
         y = _mod("minplus").ring_rows(i["y"]) if x.shape[-1] else i["y"]
@@ -148,23 +157,57 @@ class _Minplus:
         m, k = x.shape[-2:]
         n = y.shape[-1]
         tn = 4 if kernel != "minplus" else 8
+        chunks = plan.chunks
         _limits(out, kernel, plan.grid, plan.shared_bytes, plan.threads)
         if plan.threads != (plan.rows // 8) * (plan.cols // tn):
             out.append(("bounds", f"{plan.threads} threads do not hold a {plan.rows} x "
                                   f"{plan.cols} tile of 8 x {tn} outputs a thread"))
-        # the product tiles partition (g, m, n): CTAs counted a tile of the
-        # output (a CTA's tile starts at a multiple of the tile shape)
+        # each k chunk's product tiles partition (g, m, n): CTAs counted a
+        # tile of the output (a CTA's tile starts at a multiple of the tile
+        # shape; grid z is G x chunks)
         if not out:
-            cover = torch.zeros(g, -(-m // plan.rows), -(-n // plan.cols), dtype=torch.int32)
-            for bz in range(min(plan.grid[2], g)):
-                for by in range(min(plan.grid[1], cover.shape[1])):
+            cover = torch.zeros(chunks, g, -(-m // plan.rows), -(-n // plan.cols),
+                                dtype=torch.int32)
+            for bz in range(min(plan.grid[2], g * chunks)):
+                for by in range(min(plan.grid[1], cover.shape[2])):
                     for bx in range(plan.grid[0]):
                         col = bx if col_tile is None else col_tile(bx)
-                        if col < cover.shape[2]:
-                            cover[bz, by, col] += 1
-            _partition(out, kernel, cover, "output tile (graph, row tile, column tile)")
-        if plan.grid[2] != g:
-            out.append(("coverage", f"grid z {plan.grid[2]} is not G = {g}"))
+                        if col < cover.shape[3]:
+                            cover[bz // g, bz % g, by, col] += 1
+            _partition(out, kernel, cover,
+                       "output tile (k chunk, graph, row tile, column tile)")
+        if plan.grid[2] != g * chunks:
+            out.append(("coverage", f"grid z {plan.grid[2]} is not G x chunks = {g} x {chunks}"))
+        # the k chunks fold each k once; the combine folds each chunk's
+        # partials once, over every output
+        ranges = (k_ranges if k_ranges is not None
+                  else [plan.k_of(c, k) for c in range(chunks)] if chunks > 1 else [range(k)])
+        if len(ranges) != chunks:
+            out.append(("coverage", f"{len(ranges)} k chunks for a plan of {chunks}"))
+        if k:
+            folded = torch.zeros(k, dtype=torch.int32)
+            for c, kr in enumerate(ranges):
+                if not len(kr):
+                    out.append(("coverage", f"k chunk {c} folds nothing"))
+                folded[kr.start:kr.stop] += 1
+            _partition(out, kernel, folded, "k of the fold")
+        if chunks > 1:
+            planes = torch.zeros(chunks, dtype=torch.int32)
+            for c in (range(chunks) if combine_planes is None else combine_planes):
+                if 0 <= c < chunks:
+                    planes[c] += 1
+            _partition(out, "minplus_combine", planes, "partial plane")
+            cx, cy, cz = plan.combine_grid
+            _limits(out, "minplus_combine", plan.combine_grid, 0, 256)
+            if cx * 256 < n or cy < 1 or cz != 1:
+                out.append(("coverage", f"the combine's grid {plan.combine_grid} does not cover "
+                                        f"the ({g} x {m}, {n}) outputs"))
+            need = chunks * g * m * n * (8 if kernel != "minplus" else 4)
+            if plan.partial_bytes < need:
+                out.append(("bounds", f"the plan's {plan.partial_bytes} partial bytes hold less "
+                                      f"than the {need} its chunks write"))
+        elif plan.combine_grid != (0, 0, 0):
+            out.append(("coverage", f"an unsplit plan with a combine grid {plan.combine_grid}"))
         # the k-major copy and the ring's limits
         if plan.xt_pitch < m or plan.xt_pitch % 32:
             out.append(("bounds", f"X^T's pitch {plan.xt_pitch} is not M = {m} rounded up to "
@@ -193,7 +236,7 @@ class _Minplus:
 
 class _FwBlock:
     @staticmethod
-    def cuda(kernel, i):
+    def cuda(kernel, i, params=None):
         m = _mod("fw_block")
         if kernel == "fw_block":
             return (m.fw_block_cuda(i["d"], semiring=i["semiring"]),)
@@ -261,7 +304,7 @@ def _closure_static(label, plan, b, tiles, pred) -> List[Tuple[str, str]]:
 
 class _FwRound:
     @staticmethod
-    def cuda(kernel, i):
+    def cuda(kernel, i, params=None):
         m = _mod("fw_round")
         return (m.fw_round_cuda(i["d"], i["o"], block_size=i["block_size"],
                                 semiring=i["semiring"]),)          # in place, on a copy
@@ -329,12 +372,14 @@ class _FwRound:
 
 class _RowClose:
     @staticmethod
-    def cuda(kernel, i):
+    def cuda(kernel, i, params=None):
         m = _mod("row_close")
+        kw = dict(params or {})
         if kernel == "row_close_pred":
-            return m.row_close_pred_cuda(i["d"], i["rows"], i["pred"], semiring=i["semiring"])
+            return m.row_close_pred_cuda(i["d"], i["rows"], i["pred"], semiring=i["semiring"],
+                                         **kw)
         z, k = m.row_close_cuda(i["d"], i["rows"], track=kernel == "row_close_argmin",
-                                semiring=i["semiring"])
+                                semiring=i["semiring"], **kw)
         return (z,) if k is None else (z, k)
 
     @staticmethod
@@ -437,11 +482,39 @@ def _partition(out, label, counts: torch.Tensor, what: str) -> None:
 # ---------------------------------------------------------------------------
 
 def plan_of(case, inputs: Optional[dict] = None):
-    """The plan the case's wrapper computes, captured on ``meta``."""
+    """The launches the case's wrapper reports with the case's knobs,
+    captured on ``meta``: its kernel's, and a split product's
+    ``minplus_combine``."""
     i = case.inputs() if inputs is None else inputs
     fam = FAMILY[case.kernel]
-    launches = capture(lambda **kw: fam.cuda(case.kernel, kw), **i)
-    return launches
+    return capture(lambda **kw: fam.cuda(case.kernel, kw, case.params), **i)
+
+
+def _one_plan(case, launches) -> Tuple[Optional[object], List[Problem]]:
+    """The case's plan from its reported launches: one launch of its
+    kernel, followed by one ``minplus_combine`` exactly when the plan
+    splits k."""
+    names = [l.kernel for l in launches]
+    split = bool(launches) and getattr(launches[0].plan, "chunks", 1) > 1 and \
+        case.module == "minplus"
+    want = [case.kernel] + (["minplus_combine"] if split else [])
+    if names != want:
+        return None, [Problem("coverage", case.name,
+                              f"the wrapper reported {names}, not {want}")]
+    return launches[0].plan, []
+
+
+def check_static(case, inputs: Optional[dict] = None) -> List[Problem]:
+    """The static theorems of the case's captured plan (the ``kernel-grid``
+    check's static tier): no interpreter run."""
+    i = case.inputs() if inputs is None else inputs
+    plan, problems = _one_plan(case, plan_of(case, i))
+    if problems:
+        return problems
+    if case.plan_edit is not None:
+        plan = case.plan_edit(plan)
+    return [Problem(kind, case.name, msg)
+            for kind, msg in check_plan(case.kernel, plan, i, **case.options)]
 
 
 def check_plan(kernel: str, plan, inputs: dict, **options) -> List[Tuple[str, str]]:
@@ -490,12 +563,9 @@ def verify_case(case) -> List[Problem]:
     and compare; [] means every theorem holds."""
     i = case.inputs()
     fam = FAMILY[case.kernel]
-    launches = plan_of(case, i)
-    if len(launches) != 1 or launches[0].kernel != case.kernel:
-        return [Problem("coverage", case.name,
-                        f"the wrapper reported {[l.kernel for l in launches]}, not one "
-                        f"{case.kernel} launch")]
-    plan = launches[0].plan
+    plan, problems = _one_plan(case, plan_of(case, i))
+    if problems:
+        return problems
     if case.plan_edit is not None:
         plan = case.plan_edit(plan)
     static = check_plan(case.kernel, plan, i, **case.options)
@@ -564,7 +634,7 @@ def first_allocation_bytes(case, inputs: dict) -> int:
     fam = FAMILY[case.kernel]
     meta = {k: to_meta(v) for k, v in inputs.items()}
     with recording_empty() as made:
-        fam.cuda(case.kernel, meta)
+        fam.cuda(case.kernel, meta, case.params)
     return made[0].numel() * made[0].element_size() if made else 0
 
 
@@ -581,7 +651,7 @@ def verify_case_cuda(case, device="cuda") -> Tuple[List[Problem], bool]:
     torch.cuda.synchronize(device)
     ptr = canary_block(nbytes, device)
     with recording_empty() as made:
-        got = fam.cuda(case.kernel, dev_i)
+        got = fam.cuda(case.kernel, dev_i, case.params)
     torch.cuda.synchronize(device)
     hit = bool(made) and made[0].data_ptr() == ptr
     return _compare(tuple(t.cpu() for t in got), want, case, "the plain version"), hit

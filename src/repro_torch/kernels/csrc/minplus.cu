@@ -51,19 +51,45 @@
 // (minplus) or one ⊗, one compare and two selects (the witness modes) FP32
 // instructions on the CUDA cores: no tensor-core MMA computes a (min, +)
 // product.  At the blocked-FW shapes (K = B = 256) the operations bound is
-// far above the bytes bound.  The value tile is fw_update's: 64 x 128
-// outputs, 8 x 8 a thread, three CTAs of 128 threads an SM.  The witness
-// tile holds int32 indices beside the floats, so it is 8 x 4 (64 x 64
-// outputs, 168 registers, three CTAs an SM): an 8 x 8 witness tile (128
+// far above the bytes bound.  The default value tile is fw_update's: 64 x
+// 128 outputs, 8 x 8 a thread, three CTAs of 128 threads an SM.  The
+// witness tile holds int32 indices beside the floats, so it is 8 x 4 (64 x
+// 64 outputs, 168 registers, three CTAs an SM): an 8 x 8 witness tile (128
 // accumulator registers, 255 in all, two CTAs an SM) ran slower, most of
 // all with the pred epilogue (PERF.md).
 //
+// The tile lattice.  The product compiles every tile of ProductTile
+// (minplus_tile.cuh), the lattice row_close.cu compiles too: 64, 32 or 16
+// rows at 128 threads, the column tile widening as the rows narrow.  It
+// replaces minplus_pallas's tile parameters (bm, bn, bk, kc), which the JAX
+// package's autotuner measures per shape bucket; here the tuner
+// (kernels/autotune.py) measures the tile rows and the k chunks.  A short
+// operand (an spd_features hop's L landmark rows, an R-Kleene quadrant's
+// panel) fills a 16-row tile where a 64-row one would fold mostly padding.
+//
+// Split k.  A product of few output tiles (L x N with L = 8 or 64: 64 CTAs
+// at most on 132 SMs) leaves the card idle, as row_close's short lists do.
+// With chunks > 1, minplus_chunk runs G x chunks CTAs a tile over grid z:
+// each folds its k chunk (whole ring slices) from the semiring zero and
+// stores a partial (value, global k) into a (chunks, G, M, N) scratch; it
+// is a kernel of its own because the unsplit kernels, given its epilogue
+// as a branch, spilled and ran 7% slower.  minplus_combine then
+// folds each output's partials in ascending chunk order into its start
+// value (A, or the zero) with ⊕, or with the strict better for a witness,
+// and stores the outputs as the unsplit epilogue does (the pred rule
+// included).  That gives the unsplit fold's bits wherever the zero is the
+// ⊕-worst value (every value in the semiring's domain): ⊕ is selective, a
+// chunk's smallest winning k is the global one whenever the chunk wins, a
+// later chunk that only ties does not replace it, a NaN is never a
+// partial, and a NaN start value is kept.  The combine reads chunks x
+// (4 or 8) bytes an output and writes the outputs once.
+//
 // The wrapper (kernels/minplus.py) checks shapes, strides and alignment,
-// computes the launch plan (launch_plan: tile, both grids, X^T's pitch, the
-// ring's column limit, shared bytes), which minplus_launch checks against
-// its own (plan_is) and refuses if it differs, and allocates the outputs and
-// the k-major scratch; the kernels launch on the caller's stream and the
-// error is returned.
+// computes the launch plan (launch_plan: tile, chunks, the grids, X^T's
+// pitch, the ring's column limit, shared bytes), which minplus_launch
+// checks against the lattice (plan_is) and refuses if it is no member, and
+// allocates the outputs, the k-major scratch and the partials; the kernels
+// launch on the caller's stream and the error is returned.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -87,14 +113,7 @@ __device__ __forceinline__ T at(const View& v, long long g, long long r, long lo
 
 enum : int { kValue = 0, kArgmin = 1, kPred = 2 };
 
-// The value tile (TN = 8) and the witness tile (TN = 4): 64 x 16*TN
-// outputs, 32-deep k slices, three ring slots, three CTAs an SM.
-template <bool TRACK>
-struct Cfg {
-  static constexpr int TN = TRACK ? 4 : 8;
-  static constexpr int BM = 64, BN = 16 * TN, BK = 32, STAGES = 3, kMinBlocks = 3;
-  using Ring = RingShape<BM, BN, BK, STAGES, TN>;
-};
+constexpr int kCombineThreads = 256;
 
 struct Args {
   const float* xt;      // X^T, (G, K, mp) contiguous
@@ -105,17 +124,41 @@ struct Args {
   float* z;             // (G, M, N) contiguous
   int* out;             // K* (kArgmin) or preds (kPred), (G, M, N) contiguous
   View px, py, pa;      // int32 (G, M, K), (G, K, N), (G, M, N); kPred; pa.p may be null
-  int m, k, n, koff, joff;
+  float* pz;            // partial values (chunks, G, M, N) when chunks > 1
+  int* pk;              // partial k (chunks, G, M, N), witness modes, chunks > 1
+  int g, m, k, n, koff, joff, chunk, chunks;
 };
 
-template <int SR, int MODE, bool ACC>
+// Output (g, r, c) from its folded value v and winner ks (-1 where nothing
+// improved on the start value): Z, and K* or the pred rule's predecessor.
+template <int MODE>
+__device__ __forceinline__ void store(const Args& A, long long g, int r, int c, float v,
+                                      int ks) {
+  const long long e = (g * A.m + r) * A.n + c;
+  A.z[e] = v;
+  if constexpr (MODE == kArgmin) A.out[e] = ks;
+  if constexpr (MODE == kPred) {
+    int p;
+    if (ks < 0)
+      p = A.pa.p ? at<int>(A.pa, g, r, c) : -1;
+    else if (ks + A.koff == c + A.joff)
+      p = at<int>(A.px, g, r, ks);
+    else
+      p = at<int>(A.py, g, ks, c);
+    A.out[e] = p;
+  }
+}
+
+// One output tile of the unsplit product: k whole, the fold started from A
+// (or the zero), the outputs stored by the epilogue.
+template <int SR, int MODE, bool ACC, int BM>
 __device__ __forceinline__ void product_tile(const Args& A) {
-  using C = Cfg<MODE != kValue>;
-  using R = typename C::Ring;
-  constexpr int TN = C::TN;
+  using T = ProductTile<MODE != kValue, BM>;
+  using R = typename T::Ring;
+  constexpr int TN = T::TN;
   extern __shared__ float4 smem4[];
   const long long g = blockIdx.z;
-  const int m0 = blockIdx.y * C::BM, n0 = blockIdx.x * C::BN;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * T::BN;
   const int t = threadIdx.x;
   float acc[8][TN];
   int idx[8][TN];
@@ -129,7 +172,7 @@ __device__ __forceinline__ void product_tile(const Args& A) {
       idx[i][j] = -1;
     }
   }
-  fold_ring<SR, C::BM, C::BN, C::BK, C::STAGES, TN, MODE != kValue>(
+  fold_ring<SR, BM, T::BN, T::BK, T::STAGES, TN, MODE != kValue>(
       acc, idx, A.xt + g * A.k * A.mp, A.mp, A.mp,
       static_cast<const float*>(A.y.p) + g * A.y.gs, A.y.rs, A.ny, m0, n0, A.k,
       reinterpret_cast<float*>(smem4));
@@ -139,42 +182,100 @@ __device__ __forceinline__ void product_tile(const Args& A) {
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int c = n0 + R::col(t, j);
-      if (r < A.m && c < A.n) {
-        const long long e = (g * A.m + r) * A.n + c;
-        A.z[e] = acc[i][j];
-        if constexpr (MODE == kArgmin) A.out[e] = idx[i][j];
-        if constexpr (MODE == kPred) {
-          const int ks = idx[i][j];
-          int p;
-          if (ks < 0)
-            p = A.pa.p ? at<int>(A.pa, g, r, c) : -1;
-          else if (ks + A.koff == c + A.joff)
-            p = at<int>(A.px, g, r, ks);
-          else
-            p = at<int>(A.py, g, ks, c);
-          A.out[e] = p;
-        }
-      }
+      if (r < A.m && c < A.n) store<MODE>(A, g, r, c, acc[i][j], idx[i][j]);
     }
   }
 }
 
-template <int SR, bool ACC>
-__global__ void __launch_bounds__(Cfg<false>::Ring::kThreads, Cfg<false>::kMinBlocks)
+// One output tile of one k chunk of a split product (grid z = chunk x G +
+// graph): the chunk folded from the zero, the partial (value, and the
+// global k with a witness) stored into the (chunks, G, M, N) scratch.  A
+// kernel of its own, so that the unsplit kernels keep their registers.
+template <int SR, bool TRACK, int BM>
+__device__ __forceinline__ void chunk_tile(const Args& A) {
+  using T = ProductTile<TRACK, BM>;
+  using R = typename T::Ring;
+  constexpr int TN = T::TN;
+  extern __shared__ float4 smem4[];
+  const long long g = blockIdx.z % A.g;
+  const int q = blockIdx.z / A.g;
+  const int k0 = q * A.chunk, kn = min(A.chunk, A.k - k0);
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * T::BN;
+  const int t = threadIdx.x;
+  float acc[8][TN];
+  int idx[8][TN];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      acc[i][j] = Semiring<SR>::zero();
+      idx[i][j] = -1;
+    }
+  fold_ring<SR, BM, T::BN, T::BK, T::STAGES, TN, TRACK>(
+      acc, idx, A.xt + (g * A.k + k0) * A.mp, A.mp, A.mp,
+      static_cast<const float*>(A.y.p) + g * A.y.gs + k0 * A.y.rs, A.y.rs, A.ny, m0, n0, kn,
+      reinterpret_cast<float*>(smem4));
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = m0 + R::row(t, i);
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int c = n0 + R::col(t, j);
+      if (r < A.m && c < A.n)
+        store_partial<TRACK>(A.pz, A.pk, (long long)A.g * A.m * A.n, q,
+                             (g * A.m + r) * A.n + c, acc[i][j],
+                             idx[i][j] < 0 ? -1 : idx[i][j] + k0);
+    }
+  }
+}
+
+template <int SR, bool ACC, int BM>
+__global__ void __launch_bounds__(ProductTile<false, BM>::kThreads,
+                                  ProductTile<false, BM>::kMinBlocks)
 minplus(const Args A) {
-  product_tile<SR, kValue, ACC>(A);
+  product_tile<SR, kValue, ACC, BM>(A);
 }
 
-template <int SR, bool ACC>
-__global__ void __launch_bounds__(Cfg<true>::Ring::kThreads, Cfg<true>::kMinBlocks)
+template <int SR, bool ACC, int BM>
+__global__ void __launch_bounds__(ProductTile<true, BM>::kThreads,
+                                  ProductTile<true, BM>::kMinBlocks)
 minplus_argmin(const Args A) {
-  product_tile<SR, kArgmin, ACC>(A);
+  product_tile<SR, kArgmin, ACC, BM>(A);
 }
 
-template <int SR, bool ACC>
-__global__ void __launch_bounds__(Cfg<true>::Ring::kThreads, Cfg<true>::kMinBlocks)
+template <int SR, bool ACC, int BM>
+__global__ void __launch_bounds__(ProductTile<true, BM>::kThreads,
+                                  ProductTile<true, BM>::kMinBlocks)
 minplus_pred(const Args A) {
-  product_tile<SR, kPred, ACC>(A);
+  product_tile<SR, kPred, ACC, BM>(A);
+}
+
+// The k chunks of a split product, in every mode: the witness modes store
+// the same partials (the pred rule runs in minplus_combine), and A enters
+// only there.
+template <int SR, bool TRACK, int BM>
+__global__ void __launch_bounds__(ProductTile<TRACK, BM>::kThreads,
+                                  ProductTile<TRACK, BM>::kMinBlocks)
+minplus_chunk(const Args A) {
+  chunk_tile<SR, TRACK, BM>(A);
+}
+
+// The split-k combine: each output's chunk partials folded in ascending
+// chunk order into its start value (A, or the zero), then stored.  One
+// thread a column, grid y striding over the G x M rows.
+template <int SR, int MODE, bool ACC>
+__global__ void __launch_bounds__(kCombineThreads) minplus_combine(const Args A) {
+  const int c = blockIdx.x * kCombineThreads + threadIdx.x;
+  if (c >= A.n) return;
+  const long long rows = (long long)A.g * A.m, plane = rows * A.n;
+  for (long long gr = blockIdx.y; gr < rows; gr += gridDim.y) {
+    const long long g = gr / A.m;
+    const int r = static_cast<int>(gr - g * A.m);
+    float v = ACC ? at<float>(A.a, g, r, c) : Semiring<SR>::zero();
+    int ks = -1;
+    fold_partials<SR, MODE != kValue>(A.pz, A.pk, plane, gr * A.n + c, A.chunks, v, ks);
+    store<MODE>(A, g, r, c, v, ks);
+  }
 }
 
 // X^T of one batch's (M, K) X, 32 x 32 at a time: xt[g][k][m], columns
@@ -210,47 +311,85 @@ cudaError_t run(Kernel kernel, int threads, int smem, dim3 grid, cudaStream_t s,
 
 // The launch plan that kernels/minplus.py (launch_plan) computes and passes
 // in: the product's tile (bm x bn outputs, bk-deep slices) and grid
-// (gx, gy, gz), kmajor's grid (kx, ky, kz; zero when k == 0), X^T's pitch mp,
-// the ring's column limit ny of y, threads and dynamic shared bytes a CTA.
+// (gx, gy, gz = G x chunks), kmajor's grid (kx, ky, kz; zero when k == 0),
+// X^T's pitch mp, threads and dynamic shared bytes a CTA, the k chunk and
+// the chunk count, and the ring's column limit ny of y.
 struct ProductPlan {
-  int bm, bn, bk, gx, gy, gz, kx, ky, kz, mp, threads, smem;
+  int bm, bn, bk, gx, gy, gz, kx, ky, kz, mp, threads, smem, chunk, chunks;
   long long ny;
 };
 
-// The plan this source launches for mode and (g, m, k, n): what launch()
-// and minplus_launch() below run.  Any other plan is refused.
+template <bool TRACK, int BM>
+bool tile_is(const ProductPlan& P) {
+  using T = ProductTile<TRACK, BM>;
+  return P.bm == BM && P.bn == T::BN && P.bk == T::BK && P.threads == T::kThreads &&
+         P.smem == T::Ring::kSmemBytes;
+}
+
+// The plans this source launches for mode and (g, m, k, n): a tile of the
+// lattice, k in chunks of whole slices (chunk = ceil(k / chunks) rounded up
+// to the slice, none empty; one chunk of k rounded up, or 0 when k == 0),
+// the grids covering the output and X^T.  Any other plan is refused.
 template <int MODE>
 bool plan_is(const ProductPlan& P, int g, int m, int k, int n) {
-  using C = Cfg<MODE != kValue>;
-  using R = typename C::Ring;
+  constexpr bool W = MODE != kValue;
+  if (!(tile_is<W, 64>(P) || tile_is<W, 32>(P) || tile_is<W, 16>(P))) return false;
   const int mp = (m + 31) / 32 * 32;
-  return P.bm == C::BM && P.bn == C::BN && P.bk == C::BK && P.gx == (n + C::BN - 1) / C::BN &&
-         P.gy == (m + C::BM - 1) / C::BM && P.gz == g && P.mp == mp &&
+  const bool split = k == 0 ? P.chunks == 1 && P.chunk == 0
+                            : P.chunks >= 1 && P.chunks <= k &&
+                                  P.chunk == ((k + P.chunks - 1) / P.chunks + P.bk - 1) /
+                                                 P.bk * P.bk &&
+                                  P.chunks == (k + P.chunk - 1) / P.chunk;
+  return split && P.gx == (n + P.bn - 1) / P.bn && P.gy == (m + P.bm - 1) / P.bm &&
+         (long long)P.gz == (long long)g * P.chunks && P.mp == mp &&
          P.kx == (k > 0 ? mp / 32 : 0) && P.ky == (k + 31) / 32 && P.kz == (k > 0 ? g : 0) &&
-         P.threads == R::kThreads && P.smem == R::kSmemBytes && P.gy <= 65535 && P.gz <= 65535 &&
-         P.ky <= 65535 && P.kz <= 65535 && P.smem <= 232448;
+         P.gy <= 65535 && P.gz <= 65535 && P.ky <= 65535 && P.kz <= 65535 && P.smem <= 232448;
+}
+
+template <int SR, int MODE, bool ACC, int BM>
+cudaError_t launch(const Args& A, const ProductPlan& P, cudaStream_t s) {
+  const dim3 grid(P.gx, P.gy, P.gz);
+  if (P.chunks > 1)
+    return run(minplus_chunk<SR, MODE != kValue, BM>, P.threads, P.smem, grid, s, A);
+  if constexpr (MODE == kValue)
+    return run(minplus<SR, ACC, BM>, P.threads, P.smem, grid, s, A);
+  else if constexpr (MODE == kArgmin)
+    return run(minplus_argmin<SR, ACC, BM>, P.threads, P.smem, grid, s, A);
+  else
+    return run(minplus_pred<SR, ACC, BM>, P.threads, P.smem, grid, s, A);
 }
 
 template <int SR, int MODE, bool ACC>
-cudaError_t launch(const Args& A, const ProductPlan& P, cudaStream_t s) {
-  const dim3 grid(P.gx, P.gy, P.gz);
-  if constexpr (MODE == kValue)
-    return run(minplus<SR, ACC>, P.threads, P.smem, grid, s, A);
-  else if constexpr (MODE == kArgmin)
-    return run(minplus_argmin<SR, ACC>, P.threads, P.smem, grid, s, A);
-  else
-    return run(minplus_pred<SR, ACC>, P.threads, P.smem, grid, s, A);
+cudaError_t by_rows(const Args& A, const ProductPlan& P, cudaStream_t s) {
+  switch (P.bm) {
+    case 16: return launch<SR, MODE, ACC, 16>(A, P, s);
+    case 32: return launch<SR, MODE, ACC, 32>(A, P, s);
+    default: return launch<SR, MODE, ACC, 64>(A, P, s);
+  }
 }
 
 template <int SR>
 cudaError_t dispatch(int mode, bool acc, const Args& A, const ProductPlan& P, cudaStream_t s) {
   switch (mode * 2 + (acc ? 1 : 0)) {
-    case 0: return launch<SR, kValue, false>(A, P, s);
-    case 1: return launch<SR, kValue, true>(A, P, s);
-    case 2: return launch<SR, kArgmin, false>(A, P, s);
-    case 3: return launch<SR, kArgmin, true>(A, P, s);
-    case 4: return launch<SR, kPred, false>(A, P, s);
-    case 5: return launch<SR, kPred, true>(A, P, s);
+    case 0: return by_rows<SR, kValue, false>(A, P, s);
+    case 1: return by_rows<SR, kValue, true>(A, P, s);
+    case 2: return by_rows<SR, kArgmin, false>(A, P, s);
+    case 3: return by_rows<SR, kArgmin, true>(A, P, s);
+    case 4: return by_rows<SR, kPred, false>(A, P, s);
+    case 5: return by_rows<SR, kPred, true>(A, P, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <int SR>
+cudaError_t combine(int mode, bool acc, const Args& A, dim3 grid, cudaStream_t s) {
+  switch (mode * 2 + (acc ? 1 : 0)) {
+    case 0: return run(minplus_combine<SR, kValue, false>, kCombineThreads, 0, grid, s, A);
+    case 1: return run(minplus_combine<SR, kValue, true>, kCombineThreads, 0, grid, s, A);
+    case 2: return run(minplus_combine<SR, kArgmin, false>, kCombineThreads, 0, grid, s, A);
+    case 3: return run(minplus_combine<SR, kArgmin, true>, kCombineThreads, 0, grid, s, A);
+    case 4: return run(minplus_combine<SR, kPred, false>, kCombineThreads, 0, grid, s, A);
+    case 5: return run(minplus_combine<SR, kPred, true>, kCombineThreads, 0, grid, s, A);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -267,28 +406,32 @@ bool aligned16(const View& v) {
 // acc == 0, pa.p may be null, and x, y, xt, px and py may be null when
 // k == 0.  xt: float32 scratch of g * k * plan.mp floats.  y's rows are
 // 16-byte aligned and read up to column plan.ny (n <= ny <= its row pitch,
-// a multiple of 4).  z and out (K* or preds) (g, m, n) contiguous.  The
-// plan (kernels/minplus.py launch_plan, passed by address) must be the one
-// plan_is describes;
-// any other is refused before anything launches.  Launches kmajor (when
-// k > 0), then the product.  Returns a cudaError_t.
+// a multiple of 4).  z and out (K* or preds) (g, m, n) contiguous.  pz
+// (float32) and pk (int32, modes 1 and 2): the partials, plan.chunks * g *
+// m * n each, when plan.chunks > 1 (then the product writes them, not z
+// and out, and minplus_combine_launch finishes).  The plan
+// (kernels/minplus.py launch_plan, passed by address) must be one that
+// plan_is accepts; any other is refused before anything launches.
+// Launches kmajor (when k > 0), then the product.  Returns a cudaError_t.
 extern "C" int minplus_launch(int semiring, int mode, int acc, repro_torch::View x,
                               void* xt, repro_torch::View y, repro_torch::View a, void* z,
                               void* out, repro_torch::View px, repro_torch::View py,
-                              repro_torch::View pa, int g, int m, int k, int n, int koff,
-                              int joff, const repro_torch::ProductPlan* planp, void* stream) {
+                              repro_torch::View pa, void* pz, void* pk, int g, int m, int k,
+                              int n, int koff, int joff, const repro_torch::ProductPlan* planp,
+                              void* stream) {
   using namespace repro_torch;
   if (!planp) return cudaErrorInvalidValue;
   const ProductPlan& plan = *planp;
   const bool witness = mode == kArgmin || mode == kPred;
   const bool plan_ok = mode == kValue ? plan_is<kValue>(plan, g, m, k, n)
                                       : plan_is<kArgmin>(plan, g, m, k, n);
+  const bool split = plan.chunks > 1;
   const long long ny = plan.ny;
   if (g < 1 || g > 65535 || m < 1 || n < 1 || k < 0 || mode < 0 || mode > 2 || (acc && !a.p) ||
       !z || (witness && !out) ||
       (k > 0 && (!x.p || !y.p || !xt || (mode == kPred && (!px.p || !py.p)))) || !plan_ok ||
-      ny < n || ny % 4 != 0 || (k > 1 && ny > y.rs) || !aligned16(y) ||
-      reinterpret_cast<uintptr_t>(xt) % 16 != 0)
+      (split && (!pz || (witness && !pk))) || ny < n || ny % 4 != 0 || (k > 1 && ny > y.rs) ||
+      !aligned16(y) || reinterpret_cast<uintptr_t>(xt) % 16 != 0)
     return cudaErrorInvalidValue;
   Args A{};
   A.xt = static_cast<const float*>(xt);
@@ -301,11 +444,16 @@ extern "C" int minplus_launch(int semiring, int mode, int acc, repro_torch::View
   A.px = px;
   A.py = py;
   A.pa = pa;
+  A.pz = static_cast<float*>(pz);
+  A.pk = static_cast<int*>(pk);
+  A.g = g;
   A.m = m;
   A.k = k;
   A.n = n;
   A.koff = koff;
   A.joff = joff;
+  A.chunk = plan.chunk;
+  A.chunks = plan.chunks;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (k > 0) {
     kmajor<<<dim3(plan.kx, plan.ky, plan.kz), dim3(32, 8), 0, s>>>(
@@ -318,6 +466,50 @@ extern "C" int minplus_launch(int semiring, int mode, int acc, repro_torch::View
     case 1: return dispatch<1>(mode, acc != 0, A, plan, s);
     case 2: return dispatch<2>(mode, acc != 0, A, plan, s);
     case 3: return dispatch<3>(mode, acc != 0, A, plan, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The split-k combine of a product whose plan had chunks > 1: pz (float32)
+// and pk (int32, modes 1 and 2) the (chunks, g, m, n) partials, a the start
+// values (a.p null when acc == 0), z, out, px, py, pa, koff and joff as
+// minplus_launch takes them.  The grid (cx, cy) must be (n / 256 rounded
+// up, min(g * m, 65535)); any other is refused.  Returns a cudaError_t.
+extern "C" int minplus_combine_launch(int semiring, int mode, int acc, repro_torch::View a,
+                                      const void* pz, const void* pk, void* z, void* out,
+                                      repro_torch::View px, repro_torch::View py,
+                                      repro_torch::View pa, int g, int m, int n, int koff,
+                                      int joff, int chunks, int cx, int cy, void* stream) {
+  using namespace repro_torch;
+  const bool witness = mode == kArgmin || mode == kPred;
+  const long long rows = (long long)g * m;
+  if (g < 1 || m < 1 || n < 1 || mode < 0 || mode > 2 || chunks < 1 || chunks > 65535 ||
+      (acc && !a.p) || !pz || !z || (witness && (!pk || !out)) ||
+      (mode == kPred && (!px.p || !py.p)) || cx != (n + kCombineThreads - 1) / kCombineThreads ||
+      cy != (rows < 65535 ? rows : 65535))
+    return cudaErrorInvalidValue;
+  Args A{};
+  A.a = a;
+  A.pz = const_cast<float*>(static_cast<const float*>(pz));
+  A.pk = const_cast<int*>(static_cast<const int*>(pk));
+  A.z = static_cast<float*>(z);
+  A.out = static_cast<int*>(out);
+  A.px = px;
+  A.py = py;
+  A.pa = pa;
+  A.g = g;
+  A.m = m;
+  A.n = n;
+  A.koff = koff;
+  A.joff = joff;
+  A.chunks = chunks;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(cx, cy);
+  switch (semiring) {
+    case 0: return combine<0>(mode, acc != 0, A, grid, s);
+    case 1: return combine<1>(mode, acc != 0, A, grid, s);
+    case 2: return combine<2>(mode, acc != 0, A, grid, s);
+    case 3: return combine<3>(mode, acc != 0, A, grid, s);
     default: return cudaErrorInvalidValue;
   }
 }

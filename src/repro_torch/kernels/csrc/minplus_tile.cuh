@@ -53,6 +53,25 @@ struct RingShape {
   }
 };
 
+// The product tiles of minplus.cu and row_close.cu, one lattice: BM = 64,
+// 32 or 16 rows at 128 threads of 8 x TN outputs (TN = 8 for values, 4
+// with a witness).  The column tile widens as BM narrows (BM * BN = 8192
+// outputs a CTA, 4096 with a witness), so a short row list wastes no
+// thread on padded rows; the k slice is shallow enough that three ring
+// slots of BK * (BM + BN) floats leave room for three CTAs an SM.  At
+// BM = 64 these are fw_update's value tile (64 x 128, BK 32) and the
+// witness tile (64 x 64, BK 32).
+template <bool TRACK, int BM>
+struct ProductTile {
+  static constexpr int TN = TRACK ? 4 : 8;
+  static constexpr int BN = 16 * TN * 64 / BM;
+  static constexpr int BK = TRACK ? (BM < 32 ? BM : 32) : (BM / 2 < 32 ? BM / 2 : 32);
+  static constexpr int STAGES = 3, kThreads = 128, kMinBlocks = 3;
+  using Ring = RingShape<BM, BN, BK, STAGES, TN>;
+  static_assert(BM == 16 || BM == 32 || BM == 64, "the tile lattice's rows");
+  static_assert(Ring::kThreads == kThreads, "128 threads a CTA");
+};
+
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(gmem) : "memory");
@@ -172,6 +191,37 @@ __device__ __forceinline__ void fold_ring(float (&acc)[8][8], const float* __res
   int unused[8][8];
   fold_ring<SR, BM, BN, BK, STAGES, 8, false>(acc, unused, xt, ldx, ldx, y, ldy, ldy, m0, n0,
                                               K, smem);
+}
+
+// Split k, shared by minplus.cu (minplus_chunk, minplus_combine) and
+// row_close.cu (its chunks and row_close_merge).  Chunk q of a plane of
+// `plane` outputs keeps output e's partial at pz[q * plane + e] and, for a
+// witness, its global k (-1 when no k of the chunk won) at pk.  The fold
+// back walks the chunks in ascending order, ⊕ for values and the strict
+// improvement for a witness, so a tie keeps the smallest k as the unsplit
+// fold does; the caller gives the start value and finishes the output.
+template <bool TRACK>
+__device__ __forceinline__ void store_partial(float* __restrict__ pz, int* __restrict__ pk,
+                                              long long plane, int q, long long e, float v,
+                                              int k) {
+  pz[q * plane + e] = v;
+  if constexpr (TRACK) pk[q * plane + e] = k;
+}
+
+template <int SR, bool TRACK>
+__device__ __forceinline__ void fold_partials(const float* __restrict__ pz,
+                                              const int* __restrict__ pk, long long plane,
+                                              long long e, int chunks, float& v, int& k) {
+  using S = Semiring<SR>;
+  for (int q = 0; q < chunks; ++q) {
+    const float p = pz[q * plane + e];
+    if constexpr (!TRACK) {
+      v = S::add(v, p);
+    } else if (S::better(p, v)) {
+      v = p;
+      k = pk[q * plane + e];
+    }
+  }
 }
 
 }  // namespace repro_torch

@@ -31,13 +31,14 @@
 // leave most of each tile idle at r <= 16, and a grid of one row of tiles
 // (n / BN CTAs) would fill only part of the card's SMs.  So the row tile
 // is the short list's size (BM = 16, 32 or 64, 128 threads a CTA; the column
-// tile widens as BM narrows), and k is split into chunks over blockIdx.z
-// until the grid fills whole waves of the card (kernels/row_close.py
-// launch_plan picks the tile and the chunks; row_close_launch refuses a plan
-// its kernels cannot run).  With one chunk the fold kernel finishes each
-// output itself.  With more, each CTA folds its chunk from the semiring zero
-// and stores a partial (value, global k) in an (chunks, r, n) scratch, and
-// row_close_merge folds the chunks in ascending order with the strict
+// tile widens as BM narrows: the product lattice of minplus_tile.cuh), and
+// k is split into chunks over blockIdx.z until the grid fills whole waves
+// of the card (kernels/row_close.py launch_plan picks the tile and the
+// chunks by that fill rule, or takes them as the tuner's knobs;
+// row_close_launch refuses a plan outside the lattice).  With one chunk the
+// fold kernel finishes each output itself.  With more, each CTA folds its
+// chunk from the semiring zero and stores a partial (value, global k) in an
+// (chunks, r, n) scratch, and row_close_merge folds the chunks in ascending order with the strict
 // better and finishes.  Either way the finish takes the start value
 // D[R[i], j] through the row list last: v wins where better(v, D[R[i], j]).
 // That gives the unsplit fold's bits wherever the zero is the ⊕-worst value
@@ -71,18 +72,13 @@ enum : int { kValue = 0, kArgmin = 1, kPred = 2 };
 
 constexpr int kThreads = 128, kMinBlocks = 3, kMergeThreads = 256;
 
-// The tile of one mode and row height BM (64, 32 or 16): 8 x TN outputs a
-// thread, 128 threads, BN columns; a k slice shallow enough that three ring
-// slots of BK * (BM + BN) floats leave room for three CTAs an SM.
+// The tile of one mode and row height BM (64, 32 or 16): the product tile
+// lattice of minplus_tile.cuh, which minplus.cu compiles too.
 template <int MODE, int BM>
-struct Tile {
-  static constexpr int TN = MODE == kValue ? 8 : 4;
-  static constexpr int BN = 16 * TN * 64 / BM;
-  static constexpr int BK = MODE == kValue ? (BM / 2 < 32 ? BM / 2 : 32) : (BM < 32 ? BM : 32);
-  static constexpr int STAGES = 3;
-  using Ring = RingShape<BM, BN, BK, STAGES, TN>;
-  static_assert(Ring::kThreads == kThreads, "128 threads a CTA");
-};
+using Tile = ProductTile<MODE != kValue, BM>;
+static_assert(Tile<kValue, 64>::kThreads == kThreads &&
+                  Tile<kValue, 64>::kMinBlocks == kMinBlocks,
+              "row_close launches the lattice's CTAs");
 
 struct Args {
   const float* d;       // D (n, n), pitch n: the gather and the start values
@@ -151,13 +147,11 @@ __device__ __forceinline__ void fold_rows(const Args& A) {
       const int col = n0 + R::col(t, j);
       if (r < A.r && col < A.n) {
         const int k = idx[i][j] < 0 ? -1 : idx[i][j] + k0;
-        if (A.chunks == 1) {
+        if (A.chunks == 1)
           finish<SR, MODE>(A, r, col, acc[i][j], k);
-        } else {
-          const long long e = ((long long)c * A.r + r) * A.n + col;
-          A.pz[e] = acc[i][j];
-          if constexpr (MODE != kValue) A.pk[e] = k;
-        }
+        else
+          store_partial<MODE != kValue>(A.pz, A.pk, (long long)A.r * A.n, c,
+                                        (long long)r * A.n + col, acc[i][j], k);
       }
     }
   }
@@ -182,21 +176,13 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) row_close_pred(const Arg
 // order from the zero as the unsplit fold would meet them, then finished.
 template <int SR, int MODE>
 __global__ void __launch_bounds__(kMergeThreads) row_close_merge(const Args A) {
-  using S = Semiring<SR>;
   const int j = blockIdx.x * kMergeThreads + threadIdx.x;
   if (j >= A.n) return;
   for (int i = blockIdx.y; i < A.r; i += gridDim.y) {
-    float v = S::zero();
+    float v = Semiring<SR>::zero();
     int k = -1;
-    for (int c = 0; c < A.chunks; ++c) {
-      const long long e = ((long long)c * A.r + i) * A.n + j;
-      if constexpr (MODE == kValue) {
-        v = S::add(v, A.pz[e]);
-      } else if (S::better(A.pz[e], v)) {
-        v = A.pz[e];
-        k = A.pk[e];
-      }
-    }
+    fold_partials<SR, MODE != kValue>(A.pz, A.pk, (long long)A.r * A.n,
+                                      (long long)i * A.n + j, A.chunks, v, k);
     finish<SR, MODE>(A, i, j, v, k);
   }
 }
@@ -276,14 +262,16 @@ bool tile_is(int bm, int bn, int bk) {
   }
 }
 
-// The plan the kernels can run: a compiled tile (rows bm, columns bn, slice
-// bk) of the mode, chunks of whole slices that cover k = 0..n with none
-// empty, at most 65535 chunks and row tiles (grid z and y), the partial
-// scratches when there is more than one chunk.
+// The plan the kernels can run, the lattice's members: a compiled tile
+// (rows bm, columns bn, slice bk) of the mode, k = 0..n in chunks of
+// ceil(n / chunks) rounded up to whole slices with none empty (the split
+// of minplus.split_k), at most 65535 chunks and row tiles (grid z and y),
+// the partial scratches when there is more than one chunk.
 bool plan_ok(int mode, int r, int n, int bm, int bn, int bk, int chunk, int chunks,
              const Args& A) {
   const bool tile = mode == kValue ? tile_is<kValue>(bm, bn, bk) : tile_is<kArgmin>(bm, bn, bk);
   return tile && chunk >= 1 && chunk % bk == 0 && chunks >= 1 && chunks <= 65535 &&
+         chunk == ((n + chunks - 1) / chunks + bk - 1) / bk * bk &&
          (long long)(chunks - 1) * chunk < n && (long long)chunks * chunk >= n &&
          (r + bm - 1) / bm <= 65535 && (chunks == 1 || (A.pz && (mode == kValue || A.pk)));
 }

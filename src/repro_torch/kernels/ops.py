@@ -13,10 +13,16 @@ Every entry point of the JAX file is ported: ``minplus``,
 ``minplus_argmin``, ``pred_from_kstar``, ``minplus_pred``,
 ``rank_k_update`` and ``row_restricted_close`` (the dynamic engine's two
 passes), ``fw_block``, ``fw_block_pred``, ``fw_round`` and
-``fw_round_pred``.  The JAX file's per-product autotune consult has no
-counterpart: every kernel derives its tiles from the shape
-(``kernels.autotune`` says why; the blocked solve's round shape, read in
-``core.blocked_fw``, is the one tuned knob).
+``fw_round_pred``.  The product entry points and the row pass take the
+JAX signatures' ``**block_kw`` and resolve their tile as the JAX dispatch
+does (:func:`_tuned`): explicit knobs win; otherwise a CUDA or ``meta``
+dispatch reads the autotune cache's winner for its shape
+(``autotune.lookup``, ``lookup_row_close``: a dict read, with the g -> 0
+and semiring -> tropical fallbacks); either way only the kernel's own
+knobs (``tile_rows``, ``chunks``) pass, so a call written for the JAX
+signature (``bm=``, ``bn=``, ...) runs the default plan, and a knob the
+kernel's lattice does not hold raises.  The plain versions take no knob:
+a tile changes no value.
 
 bf16 operands select the mixed mode, as in the JAX file: each entry point
 upcasts to f32, computes and rounds the value once to the first operand's
@@ -124,19 +130,41 @@ def _rows(*arrays, dtype=torch.float32):
     return tuple(out)
 
 
+def _tuned(b: str, x, y, block_kw: dict, sr: Semiring) -> dict:
+    """Tile knobs for this product dispatch: explicit ``block_kw`` win,
+    else the autotune cache's winner for the shape (keyed per semiring and
+    batch, with the JAX cache's fallbacks); either way cut to the
+    backend's knobs (none for the plain versions)."""
+    if b == "torch":
+        return {}
+    from . import autotune   # lazy: a dict read, kept out of import order
+
+    if not block_kw:
+        g = x.shape[0] if x.ndim == 3 else 0
+        m, k = x.shape[-2:]
+        block_kw = autotune.lookup("cuda", x.dtype, m, k, y.shape[-1], g=g,
+                                   semiring=sr.name)
+    return autotune.knobs(b, block_kw)
+
+
 def minplus(
     x: torch.Tensor,
     y: torch.Tensor,
     a: Optional[torch.Tensor] = None,
     *,
     semiring: SemiringLike = "tropical",
+    **block_kw,
 ) -> torch.Tensor:
     """Z = ⊕_k x[:, k] ⊗ y[k, :]; fused Z = a ⊕ (.) when ``a`` is given.
-    2D or batched (G, ·, ·) operands; a new tensor in ``x``'s dtype."""
+    2D or batched (G, ·, ·) operands; a new tensor in ``x``'s dtype; tile
+    knobs from ``block_kw`` or the autotune cache (:func:`_tuned`)."""
     sr = get_semiring(semiring)
     _check_mixed(sr, x, y, a)
-    fn = minplus_torch if backend(x) == "torch" else minplus_cuda
-    return fn(*_rows(x, y, a), semiring=sr).to(x.dtype)
+    b = backend(x)
+    if b == "torch":
+        return minplus_torch(*_rows(x, y, a), semiring=sr).to(x.dtype)
+    return minplus_cuda(*_rows(x, y, a), semiring=sr,
+                        **_tuned(b, x, y, block_kw, sr)).to(x.dtype)
 
 
 def minplus_argmin(
@@ -145,13 +173,18 @@ def minplus_argmin(
     a: Optional[torch.Tensor] = None,
     *,
     semiring: SemiringLike = "tropical",
+    **block_kw,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(Z, K*) with the fused global-k witness (int32; -1 where nothing
     improved on ``a`` or on the semiring zero; ties to the smallest k)."""
     sr = get_semiring(semiring)
     _check_mixed(sr, x, y, a)
-    fn = minplus_argmin_torch if backend(x) == "torch" else minplus_argmin_cuda
-    z, ks = fn(*_rows(x, y, a), semiring=sr)
+    b = backend(x)
+    if b == "torch":
+        z, ks = minplus_argmin_torch(*_rows(x, y, a), semiring=sr)
+    else:
+        z, ks = minplus_argmin_cuda(*_rows(x, y, a), semiring=sr,
+                                    **_tuned(b, x, y, block_kw, sr))
     return z.to(x.dtype), ks
 
 
@@ -166,6 +199,7 @@ def minplus_pred(
     k_offset: int = 0,
     j_offset: int = 0,
     semiring: SemiringLike = "tropical",
+    **block_kw,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused ⊕⊗ with predecessor propagation, on the witness kernel.
     Without ``a``: a plain product, predecessors -1 where Z is the zero.
@@ -176,10 +210,14 @@ def minplus_pred(
     rule's gathers.  Operands may be strided panels of the state."""
     sr = get_semiring(semiring)
     _check_mixed(sr, x, y, a)
-    fn = minplus_pred_torch if backend(x) == "torch" else minplus_pred_cuda
+    b = backend(x)
     preds = _rows(px, py, pa, dtype=torch.int32)
-    z, pz = fn(*_rows(x, y), *preds[:2], *_rows(a), preds[2], k_offset=k_offset,
-               j_offset=j_offset, semiring=sr)
+    args = (*_rows(x, y), *preds[:2], *_rows(a), preds[2])
+    if b == "torch":
+        z, pz = minplus_pred_torch(*args, k_offset=k_offset, j_offset=j_offset, semiring=sr)
+    else:
+        z, pz = minplus_pred_cuda(*args, k_offset=k_offset, j_offset=j_offset, semiring=sr,
+                                  **_tuned(b, x, y, block_kw, sr))
     return z.to(x.dtype), pz
 
 
@@ -191,6 +229,7 @@ def rank_k_update(
     *,
     pred: Optional[torch.Tensor] = None,
     semiring: SemiringLike = "tropical",
+    **block_kw,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One fused rank-k edge-relaxation pass over a solved state, as new
     tensors: ``dist ⊕ (dist[:, U] ⊗ W ⊗ dist[V, :])`` for the k edges
@@ -224,9 +263,9 @@ def rank_k_update(
                w[:, None, :].to(cd))
     y = torch.gather(dist, 1, v[:, :, None].expand(g, k, n))
     if pred is None:
-        z, pz = minplus(x, y, dist, semiring=sr).to(dist.dtype), None
+        z, pz = minplus(x, y, dist, semiring=sr, **block_kw).to(dist.dtype), None
     else:
-        z, kstar = minplus_argmin(x, y, dist, semiring=sr)
+        z, kstar = minplus_argmin(x, y, dist, semiring=sr, **block_kw)
         z = z.to(dist.dtype)
         ks = kstar.clamp(min=0).long()
         cols = torch.arange(n, device=dist.device)
@@ -246,6 +285,7 @@ def row_restricted_close(
     *,
     pred: Optional[torch.Tensor] = None,
     semiring: SemiringLike = "tropical",
+    **block_kw,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One row-restricted relaxation pass: ``dist[R, :] ⊕= dist[R, :] ⊗ dist``.
 
@@ -262,19 +302,34 @@ def row_restricted_close(
 
     Returns new full (dist, pred) tensors, as the JAX pass does: clones of
     the inputs with the panel written back (``index_copy_``) after the
-    kernel has read the whole state.  (n, n) only.
+    kernel has read the whole state.  (n, n) only.  Tile knobs as
+    :func:`minplus`'s, the cache read under the ``rowclose|...`` key
+    (``autotune.lookup_row_close``): without a winner the kernel's fill
+    rule plans the pass.
     """
     sr = get_semiring(semiring)
     _check_mixed(sr, dist)
     rows = rows.to(device=dist.device, dtype=torch.int32).contiguous()
-    cuda = backend(dist) != "torch"
+    b = backend(dist)
     (d,) = _f32(dist)
-    if pred is None:
-        fn = _row_close.row_close_cuda if cuda else _row_close.row_close_torch
-        z, pz = fn(d, rows, semiring=sr)
+    if b == "torch":
+        if pred is None:
+            z, pz = _row_close.row_close_torch(d, rows, semiring=sr)
+        else:
+            z, pz = _row_close.row_close_pred_torch(d, rows, pred.to(torch.int32).contiguous(),
+                                                    semiring=sr)
     else:
-        fn = _row_close.row_close_pred_cuda if cuda else _row_close.row_close_pred_torch
-        z, pz = fn(d, rows, pred.to(torch.int32).contiguous(), semiring=sr)
+        from . import autotune
+
+        if not block_kw:
+            block_kw = autotune.lookup_row_close("cuda", dist.dtype, rows.numel(),
+                                                 dist.shape[-1], semiring=sr.name)
+        kw = autotune.knobs(b, block_kw)
+        if pred is None:
+            z, pz = _row_close.row_close_cuda(d, rows, semiring=sr, **kw)
+        else:
+            z, pz = _row_close.row_close_pred_cuda(d, rows, pred.to(torch.int32).contiguous(),
+                                                   semiring=sr, **kw)
     idx = rows.long()
     out = dist.clone().index_copy_(0, idx, z.to(dist.dtype))
     return out, None if pz is None else pred.clone().index_copy_(0, idx, pz.to(pred.dtype))
@@ -307,6 +362,7 @@ def fw_round_pred(
     *,
     block_size: int,
     semiring: SemiringLike = "tropical",
+    **block_kw,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused multi-stage round with predecessor propagation, out of place.
 
@@ -325,6 +381,6 @@ def fw_round_pred(
                                   semiring=sr)
     col, pcol = d[..., :, o:o + b], p[..., :, o:o + b]
     colp, pcolp = minplus_pred(col, pivot, pcol, ppivot, a=col, pa=pcol, k_offset=o,
-                               j_offset=o, semiring=sr)
+                               j_offset=o, semiring=sr, **block_kw)
     return minplus_pred(colp, d[..., o:o + b, :], pcolp, p[..., o:o + b, :], a=d, pa=p,
-                        k_offset=o, j_offset=0, semiring=sr)
+                        k_offset=o, j_offset=0, semiring=sr, **block_kw)

@@ -30,7 +30,8 @@ The caller writes the panel back into the state
 * :func:`row_close_cuda` and :func:`row_close_pred_cuda` launch the
   hand-written kernels (``csrc/row_close.cu``), which gather the rows
   themselves, on a float32 CUDA matrix, with the plan of
-  :func:`launch_plan`.  They check every row id against [0, n) before the
+  :func:`launch_plan` (its fill rule, or the tuner's knobs ``tile_rows``
+  and ``chunks``).  They check every row id against [0, n) before the
   launch.
 
 Witness and NaN rules are those of ``kernels/minplus.py``.  ``launches``
@@ -56,7 +57,7 @@ from repro_torch.roofline.kernels import row_close_work
 
 from . import _counts
 from ._codes import semiring_code
-from .minplus import minplus_argmin_torch, minplus_torch, pred_from_kstar
+from .minplus import minplus_argmin_torch, minplus_torch, pred_from_kstar, split_k, tile
 
 __all__ = [
     "row_close_torch",
@@ -102,46 +103,51 @@ class RowClosePlan(NamedTuple):
 
 
 def _tile(r: int, track: bool) -> Tuple[int, int, int]:
-    """(rows, cols, depth) of the compiled tile for r rows (``Tile`` in
-    ``csrc/row_close.cu``): 16, 32 or 64 rows, 128 threads of 8 x 8 outputs
-    (values) or 8 x 4 (witness), a ring slice of at most 32 k."""
-    bm = 16 if r <= 16 else 32 if r <= 32 else 64
-    tn = 4 if track else 8
-    return bm, 16 * tn * 64 // bm, min(32, bm if track else bm // 2)
+    """(rows, cols, depth) of the compiled tile the fill rule takes for r
+    rows: 16, 32 or 64 rows (``minplus.tile``, the product lattice that
+    ``csrc/row_close.cu`` compiles), 128 threads of 8 x 8 outputs (values)
+    or 8 x 4 (witness), a ring slice of at most 32 k."""
+    return tile(16 if r <= 16 else 32 if r <= 32 else 64, track)
 
 
-def launch_plan(r: int, n: int, track: bool, sms: int = 132) -> RowClosePlan:
+def wave_fill(ctas: int, sms: int = 132) -> float:
+    """The share of its last wave of ``CTAS_PER_SM * sms`` CTAs that a grid
+    of ``ctas`` CTAs fills."""
+    wave = CTAS_PER_SM * sms
+    return ctas / (-(-ctas // wave) * wave)
+
+
+def launch_plan(r: int, n: int, track: bool, sms: int = 132, *,
+                tile_rows: Optional[int] = None, chunks: Optional[int] = None) -> RowClosePlan:
     """The plan the kernels take for r rows of an (n, n) matrix on a card of
-    ``sms`` SMs, with (``track``) or without a witness.  k stays whole
-    while the grid fills at least ``WAVE_FILL`` of its last wave of
+    ``sms`` SMs, with (``track``) or without a witness.  The knobs:
+    ``tile_rows``, the tile's rows (16, 32 or 64; default the fewest that hold r), and
+    ``chunks``, k split into at most that many chunks of whole slices
+    (``minplus.split_k``).  Without ``chunks`` the fill rule splits: k stays
+    whole while the grid fills at least ``WAVE_FILL`` of its last wave of
     ``CTAS_PER_SM * sms`` CTAs; otherwise it splits into the fewest chunks
     (of whole slices, at least ``MIN_CHUNK`` long) that do, or, if none
     does, into those that fill the most."""
     if r < 1 or n < 1:
         raise ValueError(f"row_close takes r >= 1 rows and n >= 1, got r={r} n={n}")
-    bm, bn, bk = _tile(r, track)
+    bm, bn, bk = _tile(r, track) if tile_rows is None else tile(tile_rows, track)
     tiles = -(-r // bm) * -(-n // bn)
-    wave = CTAS_PER_SM * sms
-
-    def split(c: int) -> Tuple[int, int]:
-        chunk = -(-(-(-n // c)) // bk) * bk
-        return chunk, -(-n // chunk)
 
     def fill(c: int) -> float:
-        ctas = tiles * split(c)[1]
-        return ctas / (-(-ctas // wave) * wave)
+        return wave_fill(tiles * split_k(n, c, bk)[1], sms)
 
-    most = max(1, n // MIN_CHUNK)
-    c = next((c for c in range(1, most + 1) if fill(c) >= WAVE_FILL),
-             max(range(1, most + 1), key=fill))
-    chunk, chunks = split(c)
+    if chunks is None:
+        most = max(1, n // MIN_CHUNK)
+        chunks = next((c for c in range(1, most + 1) if fill(c) >= WAVE_FILL),
+                      max(range(1, most + 1), key=fill))
+    chunk, nc = split_k(n, chunks, bk)
     pitch = -(-r // 32) * 32
     scratch = 4 * n * pitch
-    if chunks > 1:
-        scratch += chunks * r * n * (8 if track else 4)
+    if nc > 1:
+        scratch += nc * r * n * (8 if track else 4)
     if n % 4:
         scratch += 4 * n * -(-n // 32) * 32
-    return RowClosePlan(bm, bn, bk, chunk, chunks, pitch, scratch)
+    return RowClosePlan(bm, bn, bk, chunk, nc, pitch, scratch)
 
 
 def row_close_torch(
@@ -197,15 +203,17 @@ def _check(d: torch.Tensor, rows: torch.Tensor) -> Tuple[int, int]:
 
 
 def _prepare(name: str, d: torch.Tensor, rows: torch.Tensor, pred: Optional[torch.Tensor],
-             semiring, plan: Optional[RowClosePlan] = None
+             semiring, plan: Optional[RowClosePlan] = None, *,
+             tile_rows: Optional[int] = None, chunks: Optional[int] = None
              ) -> Tuple[Callable[[], int], torch.Tensor, Optional[torch.Tensor], RowClosePlan]:
     """Check the operands, plan the launch and allocate the outputs and
     scratches of one pass in mode ``name``: (launch, Z, K* or preds, plan),
     where ``launch()`` runs the pass's grids on the current stream and
     returns their cudaError_t (on ``meta``: runs nothing, returns 0).
     ``chip_smoke.py`` times ``launch`` alone: the row check here
-    synchronises with the card.  ``plan`` replaces :func:`launch_plan`'s
-    (the grid verifier hands the C entry point defective plans)."""
+    synchronises with the card.  ``tile_rows`` and ``chunks`` are
+    :func:`launch_plan`'s knobs; ``plan`` replaces its plan (the grid
+    verifier hands the C entry point defective plans)."""
     sr = get_semiring(semiring)
     r, n = _check(d, rows)
     mode = ("row_close", "row_close_argmin", "row_close_pred").index(name)
@@ -217,7 +225,8 @@ def _prepare(name: str, d: torch.Tensor, rows: torch.Tensor, pred: Optional[torc
     code = semiring_code(sr, name)
     sms = (HW.SMS if d.is_meta
            else torch.cuda.get_device_properties(d.device).multi_processor_count)
-    plan = launch_plan(r, n, mode != 0, sms) if plan is None else plan
+    if plan is None:
+        plan = launch_plan(r, n, mode != 0, sms, tile_rows=tile_rows, chunks=chunks)
     dev = d.device
     z = torch.empty((r, n), dtype=torch.float32, device=dev)
     out = torch.empty((r, n), dtype=torch.int32, device=dev) if mode else None
@@ -256,9 +265,9 @@ def _prepare(name: str, d: torch.Tensor, rows: torch.Tensor, pred: Optional[torc
 
 
 def _launch(name: str, d: torch.Tensor, rows: torch.Tensor, pred: Optional[torch.Tensor],
-            semiring, plan: Optional[RowClosePlan] = None
+            semiring, plan: Optional[RowClosePlan] = None, **knobs
             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    launch, z, out, plan = _prepare(name, d, rows, pred, semiring, plan)
+    launch, z, out, plan = _prepare(name, d, rows, pred, semiring, plan, **knobs)
     r, n = rows.numel(), d.shape[0]
     report = dict(shape=f"r={r} n={n}", plan=tuple(plan))
     if d.is_meta:
@@ -278,12 +287,14 @@ def row_close_cuda(
     *,
     track: bool = False,
     semiring: SemiringLike = "tropical",
+    tile_rows: Optional[int] = None,
+    chunks: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Launch the CUDA kernel (``row_close``, or ``row_close_argmin`` with
-    ``track``): new (Z float32, K* int32 or None) tensors."""
-    if track:
-        return _launch("row_close_argmin", d, rows, None, semiring)
-    return _launch("row_close", d, rows, None, semiring)
+    ``track``): new (Z float32, K* int32 or None) tensors, with the tile
+    rows and k chunks of :func:`launch_plan`'s knobs."""
+    return _launch("row_close_argmin" if track else "row_close", d, rows, None, semiring,
+                   tile_rows=tile_rows, chunks=chunks)
 
 
 def row_close_pred_cuda(
@@ -292,9 +303,12 @@ def row_close_pred_cuda(
     pred: torch.Tensor,
     *,
     semiring: SemiringLike = "tropical",
+    tile_rows: Optional[int] = None,
+    chunks: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the CUDA kernel in its pred mode (``row_close_pred``): new
     (Z float32, preds int32) tensors, the preds derived from the witnesses
     in the epilogue by :func:`row_close_pred_torch`'s rule (K* is never
     stored).  ``pred`` is the (n, n) int32 state."""
-    return _launch("row_close_pred", d, rows, pred, semiring)
+    return _launch("row_close_pred", d, rows, pred, semiring, tile_rows=tile_rows,
+                   chunks=chunks)

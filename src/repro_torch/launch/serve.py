@@ -175,6 +175,55 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def warm_autotune(method: str, n_max: int, batch: int, *, semiring: str = "tropical",
+                  device=None):
+    """Warm the autotune cache for the shapes ``method``'s dispatch looks
+    up, before the first solve, as the JAX server does: ``blocked_fw`` its
+    round shape (``tune_fw_round``: block size x fused or split), then the
+    three panel products of that block (``tune_blocked_fw``, batched, so
+    g-bucketed keys); ``squaring`` and ``squaring_3d`` the N^3 product
+    (their per-slice products dispatch as 2-D); ``rkleene`` the quadrant
+    products of every edge along the ``split_point`` chain below the root
+    (the root edge is never a product operand); ``classic`` nothing.
+    Prints one ``[autotune] dispatch warm ...`` line with each source and
+    returns the sources (None when autotuning is off)."""
+    from repro_torch.kernels import autotune
+
+    if autotune.mode() == "off":
+        return None
+    t_tune = time.time()
+    src = "nothing to tune"
+    if method == "blocked_fw":
+        e = autotune.tune_fw_round(n_max, reps=1, semiring=semiring, device=device)
+        b = e.get("params", {}).get("block_size", 256)
+        tuned = autotune.tune_blocked_fw(n_max, b, g=batch, reps=1, semiring=semiring,
+                                         device=device)
+        src = {"fw_round": e.get("source"), **{k: e2.get("source") for k, e2 in tuned.items()}}
+    elif method in ("squaring", "squaring_3d"):
+        src = autotune.tune(n_max, n_max, n_max, reps=1, semiring=semiring,
+                            device=device).get("source")
+    elif method == "rkleene":
+        import importlib
+
+        # the module (``repro_torch.core.rkleene`` is bound to the solver)
+        rk = importlib.import_module("repro_torch.core.rkleene")
+        srcs, seen = [], set()
+        root = rk.padded_size(n_max, 64)
+        stack = [rk.split_point(root, 64), root - rk.split_point(root, 64)] if root > 64 else []
+        while stack:
+            e = stack.pop()
+            if e <= 64 or e in seen:
+                continue
+            seen.add(e)
+            srcs.append(autotune.tune(e, e, e, reps=1, semiring=semiring,
+                                      device=device).get("source"))
+            m = rk.split_point(e, 64)
+            stack += [m, e - m]
+        src = srcs or "leaf-only (closure kernel)"
+    print(f"[autotune] dispatch warm for n_max={n_max} ({src}, {time.time() - t_tune:.2f}s)")
+    return src
+
+
 def serve_apsp(
     n_requests: int,
     *,
@@ -194,25 +243,17 @@ def serve_apsp(
     solve.  The first cycle pays the kernels' first build (reported as
     "first cycle"); every later one reuses them.  ``semiring`` serves any
     built-in instance from the same loop (the stream is recast into its
-    domain).  Before the first cycle a ``blocked_fw`` server tunes its
-    round shape (``kernels.autotune.tune_fw_round``), which the solves then
-    read from the cache; the other methods' products have a fixed plan.
-    ``summary_out``, when given, receives the run's graphs/s and timings.
+    domain).  Before the first cycle the server warms the autotune cache
+    for the shapes its method's dispatch looks up (:func:`warm_autotune`),
+    which the solves then read from the cache.  ``summary_out``, when
+    given, receives the run's graphs/s and timings.
     """
     from repro_torch.core import get_semiring, solve_batch
     from repro_torch.core.graphgen import generate_np
-    from repro_torch.kernels import autotune
 
     _check_recastable(semiring)
     dev = _device(device)
-    if autotune.mode() != "off":
-        t_tune = time.time()
-        if method == "blocked_fw":
-            src = autotune.tune_fw_round(n_max, reps=1, semiring=semiring, device=dev)
-        else:
-            src = autotune.tune(n_max, n_max, n_max, semiring=semiring, device=dev)
-        print(f"[autotune] dispatch warm for n_max={n_max} "
-              f"({src.get('source')}: {src.get('params')}, {time.time() - t_tune:.2f}s)")
+    warm_autotune(method, n_max, batch, semiring=semiring, device=dev)
 
     rng = np.random.default_rng(seed)
     sr = get_semiring(semiring)

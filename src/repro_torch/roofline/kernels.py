@@ -9,7 +9,7 @@ the larger of the instructions over the card's FP32 issue rate
 and the bytes over the HBM rate.
 
 One function a kernel, over its shapes: ``fw_round``, ``minplus`` (value,
-witness and pred modes), ``fw_block`` (with and without preds) and
+witness and pred modes) and its split-k combine, ``fw_block`` (with and without preds) and
 ``row_close`` (three modes), plus the pass shapes ``chip_smoke.py`` prices
 (the batched rank-k pass, an ``spd_features`` hop).  The wrappers report
 the same :class:`Work` of each launch to the dry run's recorder
@@ -25,7 +25,7 @@ from typing import Optional, Tuple
 from .analysis import HW
 
 __all__ = ["FP32_LANES_PER_SM", "HBM_BYTES_PER_S", "lane_rate", "Work", "fw_round_work",
-           "minplus_work", "fw_block_work", "row_close_work", "rank_k_pass_work",
+           "minplus_work", "minplus_combine_work", "fw_block_work", "row_close_work", "rank_k_pass_work",
            "spd_hop_work"]
 
 # Published H100 SXM constants (NVIDIA's data sheet): FP32 lanes an SM
@@ -83,6 +83,23 @@ def minplus_work(g: int, m: int, k: int, n: int, *, mode: str = "minplus",
     elif mode == "minplus_pred":
         words += (mn if accumulate else 0) + mn + mn
     return Work(g * m * k * n, _MODE_INSTRUCTIONS[mode], 4 * g * words)
+
+
+def minplus_combine_work(g: int, m: int, n: int, chunks: int, *, mode: str = "minplus",
+                         accumulate: bool = False) -> Work:
+    """The split-k combine of a (G, M, K) x (G, K, N) product in ``mode``:
+    ``chunks`` partials an output folded (one ⊕ each, or a compare and two
+    selects with a witness), the partial values (and their k) read once,
+    A read once with ``accumulate``, Z (and K* or the preds) written once;
+    the pred mode reads the old preds of A and one pred an output."""
+    mn = g * m * n
+    track = mode != "minplus"
+    words = chunks * mn * (2 if track else 1) + (mn if accumulate else 0) + mn
+    if mode == "minplus_argmin":
+        words += mn
+    elif mode == "minplus_pred":
+        words += (mn if accumulate else 0) + mn + mn
+    return Work(chunks * mn, 3 if track else 1, 4 * words)
 
 
 def fw_block_work(tiles: int, b: int, pred: bool = False) -> Work:

@@ -367,8 +367,25 @@ def test_kernel_grid_skips_a_tree_without_the_kernels(tmp_path, capsys):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("check", ALL)
-def test_real_tree_clean(real, check):
+def test_real_tree_clean(real, check, monkeypatch):
+    """Each check is clean on the port's tree.  ``kernel-grid`` runs its
+    static tier here (every lattice case's plan theorems, no interpreter):
+    ``tests/test_torch_kernelcheck.py`` runs each case of its lattice
+    through the interpreter one by one, and the lattice it proves here is
+    exactly the set that file verifies, so no case goes unverified and none
+    is interpreted twice a run."""
+    if check == "kernel-grid":
+        monkeypatch.setattr(CHECKERS["kernel-grid"], "static", True)
     assert [f.format() for f in run_checks(real, [check])] == []
+    if check == "kernel-grid":
+        import importlib.util
+
+        spec = importlib.util.spec_from_file_location(
+            "_torch_kernelcheck_tests", REPO / "tests" / "test_torch_kernelcheck.py")
+        tests = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(tests)
+        proved = CHECKERS["kernel-grid"].last_cases
+        assert len(proved) == len(set(proved)) and set(proved) == set(tests.VERIFIED)
 
 
 def test_real_tree_pragmas_name_their_reason(real):

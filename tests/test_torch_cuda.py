@@ -1047,3 +1047,86 @@ def test_kernelcheck_seeded_defect_kernels_are_caught(cuda):
     for km in kernel_mutants():
         kinds = {p.kind for p in verify_kernel_mutant(km, cuda)}
         assert (km.expect in kinds) if km.expect else not kinds, (km.name, kinds)
+
+
+# ---------------------------------------------------------------------------
+# the product kernels' tile lattice (minplus tiles and split k, row_close
+# knobs, the split-k combine, the tuners and the tuned dispatch)
+# ---------------------------------------------------------------------------
+
+def _tile_cases():
+    from repro_torch.analysis.kernelcheck import autotune_cases
+
+    return {c.name: c for c in autotune_cases() if c.kernel != "fw_round"}
+
+
+@pytest.mark.parametrize("name", sorted(_tile_cases()))
+def test_tile_lattice_candidate_against_the_plain_version(cuda, name):
+    """Each tile and k split the tuners can propose, in the modes the
+    lattice holds, through its CUDA kernel (the combine or merge included),
+    the output seeded with the canary: bit-equal to the plain version."""
+    from repro_torch.analysis.kernelcheck.verify import verify_case_cuda
+
+    problems, _ = verify_case_cuda(_tile_cases()[name], cuda)
+    assert [str(p) for p in problems] == []
+
+
+@pytest.mark.parametrize("semiring", ["tropical", "bottleneck", "reliability", "boolean"])
+def test_minplus_combine_against_its_plain_version(cuda, semiring):
+    sr = get_semiring(semiring)
+    rng = np.random.default_rng(7)
+    x = _dev(rng.integers(1, 4, (2, 37, 300)).astype(np.float32), cuda)
+    y = _dev(rng.integers(1, 4, (2, 300, 70)).astype(np.float32), cuda)
+    a = _dev(rng.integers(2, 9, (2, 37, 70)).astype(np.float32), cuda)
+    px = torch.randint(-1, 300, (2, 37, 300), dtype=torch.int32, device=cuda)
+    py = torch.randint(-1, 70, (2, 300, 70), dtype=torch.int32, device=cuda)
+    pa = torch.randint(-1, 70, (2, 37, 70), dtype=torch.int32, device=cuda)
+    pz, pk = mp.minplus_partials_torch(x, y, 64, track=True, semiring=sr)
+    before = mp.launches["minplus_combine"]
+    for mode in mp.MODES:
+        extra = dict(px=px, py=py, pa=pa, k_offset=3) if mode == "minplus_pred" else {}
+        kk = None if mode == "minplus" else pk
+        gz, go = mp.minplus_combine_cuda(pz, kk, a, mode=mode, semiring=sr, **extra)
+        wz, wo = mp.minplus_combine_torch(pz, kk, a, mode=mode, semiring=sr, **extra)
+        assert _same(gz, wz) and (go is None or torch.equal(go, wo)), mode
+    assert mp.launches["minplus_combine"] == before + 3
+
+
+def _dev(a, cuda):
+    return torch.from_numpy(a).to(cuda)
+
+
+def test_non_lattice_product_plans_are_refused(cuda):
+    x = torch.rand(70, 300, device=cuda)
+    y = torch.rand(300, 130, device=cuda)
+    plan = mp.launch_plan(1, 70, 300, 130, tile_rows=32, chunks=3)
+    for bad in (plan._replace(rows=48), plan._replace(chunk=plan.chunk + 16),
+                plan._replace(chunks=plan.chunks - 1), plan._replace(depth=8),
+                plan._replace(grid=plan.grid[:2] + (1,))):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            mp._launch("minplus", 0, x, y, None, "tropical", plan=bad)
+    assert _same(mp._launch("minplus", 0, x, y, None, "tropical", plan=plan)[0],
+                 mp.minplus_torch(x, y))
+
+
+def test_tune_on_the_card_and_the_dispatch_launches_the_winner(cuda, tmp_path, monkeypatch):
+    from repro_torch.kernels import autotune
+    from repro_torch.roofline import op_cost
+
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(tmp_path / "autotune.json"))
+    e = autotune.tune(16, 4096, 2048, device=cuda)
+    assert e["source"] == "measured" and e["lattice"] == len(
+        autotune.candidates("cuda", 16, 4096, 2048))
+    assert autotune.tune(16, 4096, 2048, device=cuda)["source"] == "cache"
+    h = torch.from_numpy(generate_np(np.random.default_rng(3), 4096).h).to(cuda)
+    x, y = h[:16].contiguous(), h[:, :2048].contiguous()
+    mp.launches.update(dict.fromkeys(mp.launches, 0))
+    with op_cost.KernelLog() as log:
+        z = ops.minplus(x, y, x[:, :2048].contiguous())
+    torch.cuda.synchronize()
+    plan = log.launches[0][2]
+    assert plan == mp.launch_plan(1, 16, 4096, 2048, ny=2048, **e["params"])
+    assert mp.launches["minplus"] == 1 and mp.launches["minplus_combine"] == int(plan.chunks > 1)
+    assert _same(z, mp.minplus_torch(x, y, x[:, :2048].contiguous()))
+    r = autotune.tune_row_close(16, 4096, device=cuda)
+    assert r["source"] == "measured" and set(r["params"]) == {"tile_rows", "chunks"}

@@ -3,9 +3,12 @@ the CPU.
 
 The plans of all six CUDA wrappers are captured on ``meta`` tensors and
 equal the plans their modules compute; every lattice case and every case
-the ``fwround`` autotuner can propose runs clean through the plan
-interpreter; every plan mutant is flagged with its kind and the control
-verifies clean.  Parity with the JAX package: the lattice's first sixteen
+the autotuners can propose (``fwround`` block sizes, every tile and k split
+of the product and row-close lattices) runs clean through the plan
+interpreter, each case once (:data:`VERIFIED` is the ``kernel-grid``
+check's lattice, which ``tests/test_torch_analysis.py`` holds to it);
+every plan mutant is flagged with its kind and the control verifies
+clean.  Parity with the JAX package: the lattice's first sixteen
 cases carry ``repro.analysis.kernelcheck.lattice.default_cases``' names,
 and the interpreter's results on the port's inputs equal the JAX oracle
 (``repro.kernels.ref``, through each JAX case's ``expected()``) on the
@@ -24,9 +27,9 @@ import torch
 
 from repro.analysis.kernelcheck import lattice as ref_lattice
 from repro_torch.analysis.kernelcheck import (KINDS, autotune_cases, capture, check_plan,
-                                              control_case, default_cases, mutant_cases,
-                                              verify_case)
-from repro_torch.analysis.kernelcheck.lattice import GROUPS, reference_cases
+                                              control_case, default_cases, lattice,
+                                              mutant_cases, verify_case)
+from repro_torch.analysis.kernelcheck.lattice import LATTICE_CHUNKS, GROUPS, reference_cases
 from repro_torch.analysis.kernelcheck.simulate import Machine
 from repro_torch.analysis.kernelcheck.verify import FAMILY, plan_of
 
@@ -35,8 +38,36 @@ fr = importlib.import_module("repro_torch.kernels.fw_round")
 mp = importlib.import_module("repro_torch.kernels.minplus")
 rc = importlib.import_module("repro_torch.kernels.row_close")
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The interpreter runs many tiny tensor ops a CTA: one intra-op
+    thread, so that a pytest-xdist worker beside others does not
+    oversubscribe the host's cores (the module's cases ran 10-100x slower
+    so)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 CASES = {c.name: c for c in default_cases()}
 MUTANTS = {m.case.name: m for m in mutant_cases()}
+LATTICE = {c.name: c for c in lattice()}
+FW_ROUND_AUTOTUNE = [c.name for c in autotune_cases() if c.kernel == "fw_round"]
+TILE_AUTOTUNE = [c.name for c in autotune_cases() if c.kernel != "fw_round"]
+# Every case these tests run through the interpreter, by name: the
+# kernel-grid check's lattice.
+VERIFIED = sorted(set(CASES) | set(FW_ROUND_AUTOTUNE) | set(TILE_AUTOTUNE))
+_problems = {}
+
+
+def verified(name):
+    """The interpreter's problems for the lattice case ``name``, each case
+    run once a process (a name the default lattice and the autotune lattice
+    share, ``fw_round/b256@n512o256g0``, is one case)."""
+    if name not in _problems:
+        _problems[name] = [str(p) for p in verify_case(LATTICE[name])]
+    return _problems[name]
 
 
 def meta(*shape, dtype=torch.float32):
@@ -78,21 +109,54 @@ def test_the_six_wrappers_report_their_plans_on_meta():
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_lattice_case_verifies_clean(name):
-    assert [str(p) for p in verify_case(CASES[name])] == []
+    assert verified(name) == []
 
 
-@pytest.mark.parametrize("case", autotune_cases(), ids=lambda c: c.name)
-def test_every_fw_round_autotune_candidate_is_safe(case):
+@pytest.mark.parametrize("name", FW_ROUND_AUTOTUNE)
+def test_every_fw_round_autotune_candidate_is_safe(name):
     from repro_torch.kernels import autotune
 
-    assert [str(p) for p in verify_case(case)] == []
-    assert case.shape[2] in set(autotune._FW_ROUND_BLOCKS) | {8, 16}
+    assert verified(name) == []
+    assert LATTICE[name].shape[2] in set(autotune._FW_ROUND_BLOCKS) | {8, 16}
+
+
+@pytest.mark.parametrize("name", TILE_AUTOTUNE)
+def test_every_product_and_row_close_candidate_is_safe(name):
+    """Each tile and k split of the product and row-close lattices, at the
+    smallest shape that pads its tiles and splits k, through the
+    interpreter (partial planes, the combine or merge) against the oracle
+    and the plain version."""
+    case = LATTICE[name]
+    assert verified(name) == []
+    plan = plan_of(case)[0].plan
+    assert case.params and plan.rows == case.params["tile_rows"]
+    assert plan.chunks == case.params["chunks"]
+
+
+def test_tile_autotune_cases_cover_every_candidate():
+    """Every (tile rows, chunks) the tuners can propose for any shape, in
+    every mode, is a lattice case: the candidates' chunk counts never
+    exceed the lattice's."""
+    from repro_torch.kernels import autotune
+
+    covered = {(c.module, c.kernel, c.params["tile_rows"], c.params["chunks"])
+               for c in LATTICE.values() if c.params}
+    for m, k, n in ((1, 1, 1), (8, 8192, 8192), (4096, 2048, 4096), (64, 1 << 22, 64),
+                    (100, 16384, 30)):
+        for p in autotune.candidates("cuda", m, k, n):
+            assert ("minplus", "minplus", p["tile_rows"], p["chunks"]) in covered
+            assert ("row_close", "row_close", p["tile_rows"], p["chunks"]) in covered
+    assert {(c[0], c[1]) for c in covered if c[3] == 3} == {
+        ("minplus", "minplus"), ("minplus", "minplus_argmin"), ("minplus", "minplus_pred"),
+        ("row_close", "row_close"), ("row_close", "row_close_argmin"),
+        ("row_close", "row_close_pred")}
+    assert set(LATTICE_CHUNKS) >= {1, 2, 4, 8, 16, 32, 64}
 
 
 def test_autotune_cases_cover_every_candidate():
     from repro_torch.kernels import autotune
 
-    blocks = {c.shape[2] for c in autotune_cases()}
+    blocks = {c.shape[2] for c in autotune_cases() if c.kernel == "fw_round"}
     assert set(autotune._FW_ROUND_BLOCKS) <= blocks
     for n in (1, 5, 9, 16, 17, 31, 64, 300, 8192):
         nb = autotune.bucket(n)

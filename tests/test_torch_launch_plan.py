@@ -328,20 +328,35 @@ def _ring_smem(bm: int, bn: int, bk: int, stages: int) -> int:
 
 @pytest.mark.parametrize("mode", ["minplus", "minplus_argmin", "minplus_pred"])
 def test_product_plan_is_the_kernels(mode):
-    """What plan_is checks: Cfg's tile (64 rows, 16 * TN columns, TN 8 for
-    values and 4 with a witness, 32-deep slices, 3 slots), 128 threads of
-    8 x TN outputs, the ring's shared bytes inside a CTA's 227 KB."""
-    text = (CSRC / "minplus.cu").read_text()
+    """What plan_is checks: a tile of ProductTile's lattice (minplus_tile.cuh:
+    16, 32 or 64 rows, 16 * TN * 64 / rows columns, TN 8 for values and 4
+    with a witness, slices of min(32, rows / 2) or min(32, rows) k, 3
+    slots), 128 threads of 8 x TN outputs, the ring's shared bytes inside a
+    CTA's 227 KB; with no knob the 64-row tile (64 x 128 for values, 64 x 64
+    with a witness, 32-deep slices)."""
+    text = (CSRC / "minplus_tile.cuh").read_text()
     assert "static constexpr int TN = TRACK ? 4 : 8;" in text
+    assert "static constexpr int BN = 16 * TN * 64 / BM;" in text
+    assert ("static constexpr int BK = TRACK ? (BM < 32 ? BM : 32) : (BM / 2 < 32 ? BM / 2 : 32);"
+            in text)
+    assert "static constexpr int STAGES = 3, kThreads = 128, kMinBlocks = 3;" in text
+    assert "ProductTile<MODE != kValue, BM>" in (CSRC / "minplus.cu").read_text()
     tn = 4 if mode != "minplus" else 8
-    bm, bk, stages = _cfg("BM", text), _cfg("BK", text), _cfg("STAGES", text)
-    assert "BN = 16 * TN" in text
+    for rows in (16, 32, 64):
+        plan = mp.launch_plan(1, 100, 50, 300, mode, tile_rows=rows)
+        bk = min(32, rows) if tn == 4 else min(32, rows // 2)
+        assert (plan.rows, plan.cols, plan.depth) == (rows, 16 * tn * 64 // rows, bk)
+        assert plan.threads == (rows // 8) * (plan.cols // tn) == 128
+        assert plan.shared_bytes == _ring_smem(rows, plan.cols, bk, 3) <= SHARED_PER_CTA
     plan = mp.launch_plan(1, 100, 50, 300, mode)
-    assert (plan.rows, plan.cols, plan.depth) == (bm, 16 * tn, bk)
-    assert plan.threads == (bm // 8) * (16 * tn // tn) == 128
-    assert plan.shared_bytes == _ring_smem(bm, 16 * tn, bk, stages) <= SHARED_PER_CTA
+    assert (plan.rows, plan.cols, plan.depth) == (64, 16 * tn, 32)
+    assert plan == mp.launch_plan(1, 100, 50, 300, mode, tile_rows=64, chunks=1)
     with pytest.raises(ValueError):
         mp.launch_plan(1, 4, 4, 4, "minplus_pred_x")
+    with pytest.raises(ValueError):
+        mp.launch_plan(1, 4, 4, 4, mode, tile_rows=48)
+    with pytest.raises(ValueError):
+        mp.launch_plan(1, 4, 4, 4, mode, chunks=0)
 
 
 @pytest.mark.parametrize("mode", ["minplus", "minplus_argmin", "minplus_pred"])
