@@ -2890,9 +2890,8 @@ def drive_dryrun(card: str, proc, log: Path, out_dir: Path):
 
     import repro_torch
     from repro_torch.configs import ARCH_IDS, get_arch
-    from repro_torch.launch import dryrun
+    from repro_torch.launch import dryrun, make_host_mesh
     from repro_torch.launch.builders import build_cell
-    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.roofline import HW
     from repro_torch.roofline.op_cost import OpCounter
     from repro_torch.tree import leaves
@@ -3028,7 +3027,9 @@ def drive_analysis(card: str, h16: torch.Tensor):
     in a subprocess: exit 0, no gating finding; the lattice through each of
     the six CUDA kernels, each with a canary hit, every plan and kernel
     mutant flagged with its kind and the controls clean (the checker's
-    stderr summary).  (b) Every plan mutant with a C form handed to its C
+    stderr summary); the donation check's public-wrapper checks (``solve``,
+    ``solve_batch``, ``DynamicAPSP.update`` with ``donate=True``) ran on
+    the card as on the CPU, with no finding.  (b) Every plan mutant with a C form handed to its C
     entry point is refused and leaves its output's canary intact.  (c)
     ``solve`` at N = 16384, B = 512 with ``donate=True`` and with
     ``donate=False``: the first returns the input's storage and rises by
@@ -3069,6 +3070,14 @@ def drive_analysis(card: str, h16: torch.Tensor):
         want = got["expect"]
         check((want is None and not got["found"]) or (want in got["found"]),
               f"13a: {name} expected {want or 'clean'}, found {got['found']}")
+    line = next(ln for ln in proc.stderr.splitlines() if ln.startswith("analyze: [donation] {"))
+    wrappers = json.loads(line.split("] ", 1)[1])["wrapper_checks"]
+    check(wrappers.get("cuda", 0) >= 3 and wrappers.get("cuda") == wrappers.get("cpu")
+          and per_check.get("donation") == 0,
+          f"13a: the wrapper donation checks ran {wrappers} a device, with "
+          f"{per_check.get('donation')} donation findings")
+    print(f"phase 13a on {card}: wrapper donation checks: {wrappers['cuda']} on the card, "
+          f"{wrappers['cpu']} on the CPU, 0 findings")
     print(f"phase 13a on {card}: python -m repro_torch.analysis --json --require-cuda exit 0 in "
           f"{analysis_s:.1f} s; findings per check {json.dumps(per_check)}; lattice cases "
           f"through each CUDA kernel {json.dumps(summary['cuda_cases'])} (CPU interpreter "
@@ -3135,7 +3144,7 @@ def drive_analysis(card: str, h16: torch.Tensor):
     phase_s = time.perf_counter() - t_phase
     print(f"phase 13 on {card}: {phase_s:.1f} s")
     return {"analysis_s": analysis_s, "per_check": per_check, "summary": summary,
-            "refused": refused, "rise_bytes": {str(k): v for k, v in rise.items()},
+            "wrapper_checks": wrappers, "refused": refused, "rise_bytes": {str(k): v for k, v in rise.items()},
             "scratch_bytes": scratch, "phase_s": phase_s}
 
 

@@ -13,7 +13,8 @@ Usage (from the repo root):
 The flags, output and exit codes are ``tools/analyze.py``'s: ``--only``
 (repeatable) unions with ``--checks``; ``--only unfused-dispatch`` is the
 port's ``tools/lint_dispatch.py``.  ``--require-cuda`` makes a missing CUDA
-device a finding of ``kernel-grid`` (whose card half is otherwise skipped).
+device a finding of ``kernel-grid`` (whose card half is otherwise skipped)
+and of ``donation``, whose public-wrapper checks then run on the card too.
 
 Exit status: 0 = clean (advisory-only findings included), 1 = gating
 findings, 2 = usage error.  ``--json`` emits ``{"schema": 1, "checks":
@@ -45,7 +46,8 @@ def main(argv=None) -> int:
                     help="project root to analyze (default: this repo)")
     ap.add_argument("--list", action="store_true", help="list registered checks and exit")
     ap.add_argument("--require-cuda", action="store_true",
-                    help="kernel-grid: a missing CUDA device is a finding")
+                    help="kernel-grid, donation: a missing CUDA device is a finding; "
+                         "donation's wrapper checks run on the card too")
     args = ap.parse_args(argv)
 
     if args.list:
@@ -59,6 +61,7 @@ def main(argv=None) -> int:
         only = [c.strip() for c in args.only if c.strip()]
         names = (names or []) + [c for c in only if c not in (names or [])]
     CHECKERS["kernel-grid"].require_cuda = args.require_cuda
+    CHECKERS["donation"].require_cuda = args.require_cuda
     project = Project(args.root)
     try:
         findings = run_checks(project, names)

@@ -21,20 +21,35 @@ reference's three claims become these:
     across a rank-k update, a row re-close and a warm re-solve; ``rkleene``
     states that it never aliases (its ``donate=`` has no effect) and is
     held to that.
-(c) **Memory** (card only): ``chip_smoke.py``'s phase 13c reads
+(c) **Consumption through the public wrappers** (tier B, runtime), the
+    reference's ``_wrapper_consumption_findings``.  Where JAX deletes the
+    donated buffer, the port's donating wrapper leaves its result in the
+    donated storage: ``solve(donate=True)`` on a caller's float32 tensor
+    already on the device and a multiple of the block returns ``dist`` in
+    the caller's storage; so does ``solve_batch(donate=True)`` on a
+    pre-stacked full-size float32 stack (``pad_batch`` passes it through
+    as itself); and ``DynamicAPSP(donate=True).update`` commits an
+    incremental (rank-k) update into the storage of the ``dist`` the
+    engine held before it.  These run on the CPU, and with
+    ``require_cuda`` (``--require-cuda``) on the card too.
+(d) **Memory** (card only): ``chip_smoke.py``'s phase 13c reads
     ``torch.cuda.max_memory_allocated`` around a donating and a copying
     solve at full size.
 
 Tier B imports and runs the solvers, so it only runs when the analyzed
 tree holds their sources; a fixture tree is skipped with a notice on
-stderr.  Tests pass their own specs to :func:`run_donation_checks`.
+stderr.  Tests pass their own specs to :func:`run_donation_checks`, which
+then skips (c), as ``wrappers=False`` does.  The checker prints the number
+of wrapper checks a device on stderr, as ``analyze: [donation] {json}``.
 """
 
 from __future__ import annotations
 
 import ast
+import json
+import sys
 from dataclasses import dataclass
-from typing import Callable, Dict, Iterator, List, Optional, Sequence, Set
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Set, Tuple
 
 from .astutil import dotted
 from .base import Checker, Finding, Project, register_checker
@@ -297,11 +312,73 @@ def default_specs(device: str = "cpu") -> List[DonationSpec]:
     return specs
 
 
-def run_donation_checks(specs: Optional[Sequence[DonationSpec]] = None) -> List[Finding]:
-    """Run the aliasing specs (default: the port's entry points on the CPU)."""
+def _wrapper_checks(device: str = "cpu") -> List[Tuple[str, str, Callable[[], bool]]]:
+    """``(path, message, consumed)`` for each public wrapper that donates:
+    ``consumed()`` runs it on fresh inputs on ``device`` and says whether
+    the donated storage holds its result (the module docstring's (c))."""
+    import importlib
+
+    import torch
+
+    apsp = importlib.import_module("repro_torch.core.apsp")
+    dyn = importlib.import_module("repro_torch.core.dynamic")
+
+    def tensor(a):
+        return torch.from_numpy(a).to(device)
+
+    def solve():
+        h = tensor(_host_matrix(32))
+        ptr = storage_ptr(h)
+        r = apsp.solve(h, method="blocked_fw", block_size=16, donate=True, device=device)
+        return storage_ptr(r.dist) == ptr
+
+    def solve_batch():
+        # a pre-stacked full-size float32 stack on the device: pad_batch
+        # passes it through as itself, so the caller's storage is donated
+        # (a ragged list donates only the packed stack the call made)
+        hs = torch.stack([tensor(_host_matrix(16, seed=7)), tensor(_host_matrix(16, seed=8))])
+        ptr = storage_ptr(hs)
+        r = apsp.solve_batch(hs, method="blocked_fw", block_size=8, donate=True, device=device)
+        return storage_ptr(r.dist) == ptr
+
+    def update():
+        eng = dyn.DynamicAPSP(_host_matrix(16, seed=9), method="squaring", with_pred=True,
+                              donate=True, device=device)
+        ptr = storage_ptr(eng.dist)
+        info = eng.update([1], [2], [0.25])
+        if info["path"] != "rank_k":
+            raise AssertionError(f"the DynamicAPSP.update check took another path: {info}")
+        return storage_ptr(eng.dist) == ptr
+
+    ap, dy = "src/repro_torch/core/apsp.py", "src/repro_torch/core/dynamic.py"
+    return [
+        (ap, "solve(donate=True) did not consume its input buffer: the result's dist "
+             "does not lie in the caller's storage", solve),
+        (ap, "solve_batch(donate=True) did not consume its pre-stacked input buffer: "
+             "the result's dist does not lie in the caller's storage", solve_batch),
+        (dy, "DynamicAPSP.update(donate=True) did not consume the previous dist buffer: "
+             "the updated dist does not lie in its storage", update),
+    ]
+
+
+def _wrapper_consumption_findings(device: str = "cpu") -> List[Finding]:
+    """End-to-end checks through the public wrappers on ``device``:
+    donation must consume (in the port: leave the result in the donated
+    storage)."""
+    return [Finding(check=_CHECK, path=path, line=0, message=message)
+            for path, message, consumed in _wrapper_checks(device) if not consumed()]
+
+
+def run_donation_checks(specs: Optional[Sequence[DonationSpec]] = None, *,
+                        wrappers: bool = True) -> List[Finding]:
+    """Run the aliasing specs (default: the port's entry points on the CPU)
+    and, given no ``specs`` and ``wrappers``, the public wrappers'
+    consumption checks on the CPU."""
     findings: List[Finding] = []
     for spec in (default_specs() if specs is None else specs):
         findings.extend(check_spec(spec))
+    if specs is None and wrappers:
+        findings.extend(_wrapper_consumption_findings())
     return findings
 
 
@@ -310,9 +387,13 @@ class DonationChecker(Checker):
     description = (
         "no read of a name after it was donated (donate=True) before it is "
         "rebound; donating solves return the caller's storage, the engine "
-        "keeps its dist/pred storage, rkleene never aliases (tier B runs "
-        "the solvers at N <= 32)"
+        "keeps its dist/pred storage, rkleene never aliases, and the public "
+        "wrappers (solve, solve_batch, DynamicAPSP.update) leave their result "
+        "in the donated storage (tier B runs the solvers at N <= 32)"
     )
+    # --require-cuda: the wrapper checks run on the card too, and a
+    # missing card is a finding
+    require_cuda = False
 
     _SOLVER_SOURCES = (
         "src/repro_torch/core/blocked_fw.py",
@@ -330,11 +411,23 @@ class DonationChecker(Checker):
                     "have overwritten it with its result; rebind it first")
         missing = [s for s in self._SOLVER_SOURCES if not project.has(s)]
         if missing:
-            import sys
             print(f"analyze: [donation] tier B skipped — {project.root} has no {missing[0]} "
                   "(not the port's tree)", file=sys.stderr)
             return
         yield from run_donation_checks()
+        counts = {"cpu": len(_wrapper_checks("cpu"))}
+        if self.require_cuda:
+            import torch
+
+            if not torch.cuda.is_available():
+                yield Finding(check=_CHECK, path="src/repro_torch/core/apsp.py", line=0,
+                              message="--require-cuda: no CUDA device, so the wrapper "
+                                      "donation checks did not run on the card")
+            else:
+                yield from _wrapper_consumption_findings("cuda")
+                counts["cuda"] = len(_wrapper_checks("cuda"))
+        print(f"analyze: [donation] {json.dumps({'wrapper_checks': counts}, sort_keys=True)}",
+              file=sys.stderr)
 
 
 register_checker(DonationChecker())

@@ -454,7 +454,8 @@ def _measured(cands: List[dict], best: List[float], key: str) -> dict:
 
 
 def tune(m: int, k: int, n: int, *, g: int = 0, dtype=torch.float32, device=None,
-         reps: int = 2, force: Optional[bool] = None, semiring: str = "tropical") -> dict:
+         backend: Optional[str] = None, reps: int = 2, force: Optional[bool] = None,
+         semiring: str = "tropical") -> dict:
     """Measure the product lattice (:func:`candidates`) for one shape
     bucket on the card — the fused accumulate ``a ⊕ x ⊗ y`` at the bucketed
     shape, the batch capped at 8 — and persist the fastest under
@@ -462,9 +463,12 @@ def tune(m: int, k: int, n: int, *, g: int = 0, dtype=torch.float32, device=None
     ``source`` is ``"cache"`` when a persisted winner was reused,
     ``"measured"`` after a sweep, ``"disabled"`` under ``REPRO_AUTOTUNE=0``.
     On the CPU: the plain fold's fixed entry, nothing measured or written.
-    Arguments as the JAX tuner's (``device`` for its ``backend``)."""
+    Arguments as the JAX tuner's; ``device`` picks the route, and JAX's
+    ``backend`` (Pallas, XLA or interpret) is taken and dropped, whatever
+    its value."""
     from repro_torch.core.semiring import get_semiring
 
+    del backend                          # the route follows ``device``
     sr = get_semiring(semiring)
     md = mode()
     if md == "off":
@@ -491,10 +495,13 @@ def tune(m: int, k: int, n: int, *, g: int = 0, dtype=torch.float32, device=None
 
 
 def tune_blocked_fw(n: int, block_size: int, *, g: int = 0, dtype=torch.float32, device=None,
-                    reps: int = 2, semiring: str = "tropical") -> Dict[str, dict]:
+                    backend: Optional[str] = None, reps: int = 2,
+                    semiring: str = "tropical") -> Dict[str, dict]:
     """Tune the three panel-product shapes one blocked-FW pivot step hits:
     the row panel (B, B) x (B, N), the column panel (N, B) x (B, B) and the
-    fused phase-3 (N, B) x (B, N) accumulate.  Returns {shape name: entry}."""
+    fused phase-3 (N, B) x (B, N) accumulate.  Returns {shape name: entry}.
+    ``backend`` is dropped, as :func:`tune` drops it."""
+    del backend
     b = min(block_size, n)
     shapes = {"row_panel": (b, b, n), "col_panel": (n, b, b), "phase3": (n, b, n)}
     return {name: tune(m, k, nn, g=g, dtype=dtype, device=device, reps=reps,
@@ -502,15 +509,18 @@ def tune_blocked_fw(n: int, block_size: int, *, g: int = 0, dtype=torch.float32,
             for name, (m, k, nn) in shapes.items()}
 
 
-def tune_row_close(r: int, n: int, *, dtype=torch.float32, device=None, reps: int = 2,
+def tune_row_close(r: int, n: int, *, dtype=torch.float32, device=None,
+                   backend: Optional[str] = None, reps: int = 2,
                    force: Optional[bool] = None, semiring: str = "tropical") -> dict:
     """Measure the row-close lattice (:func:`_row_close_candidates`) for one
     (r, n) bucket on the card — the pass's grids alone, on an in-domain
     (n, n) matrix and r distinct rows (r's bucket halved, as the JAX tuner
     takes it) — and persist the fastest under the ``rowclose|...`` key.
-    Semantics as :func:`tune`; on the CPU the plain fold's fixed entry."""
+    Semantics as :func:`tune` (``backend`` dropped); on the CPU the plain
+    fold's fixed entry."""
     from repro_torch.core.semiring import get_semiring
 
+    del backend
     sr = get_semiring(semiring)
     md = mode()
     if md == "off":
@@ -573,7 +583,8 @@ def _tuning_matrix(n: int, dtype, semiring, device) -> torch.Tensor:
     return a.to(dtype)
 
 
-def tune_fw_round(n: int, *, dtype=torch.float32, device=None, reps: int = 2,
+def tune_fw_round(n: int, *, dtype=torch.float32, device=None,
+                  backend: Optional[str] = None, reps: int = 2,
                   force: Optional[bool] = None, semiring: str = "tropical",
                   blocks: Optional[tuple] = None) -> dict:
     """Sweep block size x round mode with whole blocked solves on an
@@ -581,7 +592,8 @@ def tune_fw_round(n: int, *, dtype=torch.float32, device=None, reps: int = 2,
     (block_size, round_mode) under the ``fwround|...`` key.  Returns the
     cache entry; ``source`` is ``"cache"`` when a persisted winner was
     reused, ``"measured"`` after a sweep, ``"disabled"`` under
-    ``REPRO_AUTOTUNE=0``."""
+    ``REPRO_AUTOTUNE=0``.  ``backend`` is dropped, as :func:`tune` drops
+    it: the key's backend follows ``device``."""
     from repro_torch.core.semiring import get_semiring
 
     sr = get_semiring(semiring)

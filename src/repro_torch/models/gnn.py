@@ -40,6 +40,7 @@ with the CPU within a tolerance, not bit for bit.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Any, Optional, Tuple
 
@@ -67,6 +68,9 @@ class GNNConfig:
     param_dtype: Any = torch.float32
     compute_dtype: Any = torch.float32
     batch_axes: Tuple[str, ...] = ("data",)   # the reference's sharding axes; unused here
+
+    def with_batch_axes(self, axes) -> "GNNConfig":
+        return dataclasses.replace(self, batch_axes=tuple(axes))
 
 
 # ---------------------------------------------------------------------------

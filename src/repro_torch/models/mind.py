@@ -93,8 +93,8 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor, mask: torch.Tensor, *,
     return pooled
 
 
-def squash(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
-    n2 = torch.sum(x * x, dim=dim, keepdim=True)
+def squash(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    n2 = torch.sum(x * x, dim=axis, keepdim=True)
     n = torch.sqrt(torch.clamp(n2, min=1e-9))
     return (n2 / (1.0 + n2)) * (x / n)
 

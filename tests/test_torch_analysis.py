@@ -8,11 +8,13 @@ on the same seeded line lists; ``except-swallow`` and ``autotune-key``,
 pointed at the JAX package's fixture files (read only), flag the same
 (check, line) set as the JAX package's checkers; the donation check's
 runtime half holds the port's solvers to their aliasing claims at
-N <= 32; the CLI keeps ``tools/analyze.py``'s flags, JSON schema and exit
-codes.  The kernel grid verifier has its own file,
-``tests/test_torch_kernelcheck.py``.
+N <= 32, and the public wrappers (``solve``, ``solve_batch``,
+``DynamicAPSP.update``) to the port's consumption rule; the CLI keeps
+``tools/analyze.py``'s flags, JSON schema and exit codes.  The kernel
+grid verifier has its own file, ``tests/test_torch_kernelcheck.py``.
 """
 
+import importlib
 import json
 import random
 import subprocess
@@ -30,6 +32,7 @@ from repro.analysis import pragmas as ref_pragmas
 from repro.analysis import run_checks as ref_run_checks
 from repro_torch.analysis import (CHECKERS, DonationSpec, Finding, Project, pragmas,
                                   run_checks, run_donation_checks)
+from repro_torch.analysis import donation
 from repro_torch.analysis.__main__ import main as cli
 from repro_torch.analysis.donation import default_specs
 from repro_torch.analysis.purity import SEEDS, missing_seeds
@@ -464,6 +467,64 @@ def test_donation_spec_catches_a_broken_claim():
                                DonationSpec("fine", "src/z.py", aliases)])
     assert [(f.path, f.check) for f in got] == [("src/x.py", "donation"),
                                                 ("src/y.py", "donation")]
+
+
+def test_public_wrappers_leave_their_result_in_the_donated_storage():
+    """The port's ``_wrapper_consumption_findings``: ``solve``,
+    ``solve_batch`` and ``DynamicAPSP.update`` with ``donate=True`` hold
+    the port's rule on the CPU, three checks, no finding."""
+    assert len(donation._wrapper_checks()) == 3
+    assert donation._wrapper_consumption_findings() == []
+
+
+@pytest.mark.parametrize("broken,path,message", [
+    ("solve", "src/repro_torch/core/apsp.py", "solve(donate=True) did not consume"),
+    ("solve_batch", "src/repro_torch/core/apsp.py",
+     "solve_batch(donate=True) did not consume its pre-stacked"),
+    ("update", "src/repro_torch/core/dynamic.py", "DynamicAPSP.update(donate=True) did not"),
+], ids=["solve", "solve_batch", "update"])
+def test_a_wrapper_that_breaks_its_aliasing_rule_is_one_finding(monkeypatch, broken, path,
+                                                                message):
+    apsp = importlib.import_module("repro_torch.core.apsp")
+    dyn = importlib.import_module("repro_torch.core.dynamic")
+    if broken == "update":
+        def rebind(self, dist, pred):           # commit by rebinding, as donate=False does
+            self._dist, self._pred = dist, pred
+        monkeypatch.setattr(dyn.DynamicAPSP, "_commit", rebind)
+    else:
+        wrapper = getattr(apsp, broken)
+        monkeypatch.setattr(apsp, broken, lambda h, **kw: wrapper(h.clone(), **kw))
+    got = donation._wrapper_consumption_findings()
+    assert [(f.check, f.path, f.line) for f in got] == [("donation", path, 0)]
+    assert got[0].message.startswith(message)
+
+
+def test_wrapper_checks_run_only_with_the_default_specs(monkeypatch):
+    """JAX's rule: the wrapper findings are added only when ``specs is None
+    and wrappers``."""
+    ran = []
+    monkeypatch.setattr(donation, "default_specs", lambda: [])
+    monkeypatch.setattr(donation, "_wrapper_consumption_findings",
+                        lambda device="cpu": ran.append(device) or [])
+    assert run_donation_checks(wrappers=False) == [] and ran == []
+    assert run_donation_checks([]) == [] and run_donation_checks([], wrappers=True) == []
+    assert ran == []
+    assert run_donation_checks() == [] and ran == ["cpu"]
+
+
+def test_require_cuda_without_a_card_is_a_donation_finding(real, monkeypatch, capsys):
+    """``--require-cuda`` runs the wrapper checks on the card too; with no
+    card that is a finding.  The checker's stderr line counts the wrapper
+    checks a device."""
+    monkeypatch.setattr(donation, "run_donation_checks", lambda: [])
+    monkeypatch.setattr(CHECKERS["donation"], "require_cuda", True)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    got = run_checks(real, ["donation"])
+    assert [(f.path, f.message.split(":")[0]) for f in got] == [
+        ("src/repro_torch/core/apsp.py", "--require-cuda")]
+    line = next(ln for ln in capsys.readouterr().err.splitlines()
+                if ln.startswith("analyze: [donation] {"))
+    assert json.loads(line.split("] ", 1)[1]) == {"wrapper_checks": {"cpu": 3}}
 
 
 # ---------------------------------------------------------------------------

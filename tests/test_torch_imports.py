@@ -265,18 +265,48 @@ def test_port_solve_batch_without_jax(method):
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 
+# Names a port module exports beyond its JAX module's: the mesh class and
+# the general constructor the distributed solvers build their meshes with.
+_PORT_ONLY = {"launch.mesh": {"Mesh", "make_mesh"}}
+
+
 @pytest.mark.parametrize("name,exported", [
     ("launch.pool", "SlotState EngineSlot EnginePool QueryResult"),
     ("launch.faults", "FaultSpec FaultInjector InjectedCrash NULL_INJECTOR"),
     ("launch.executor", "UpdateExecutor"),
     ("launch.stats", "Counters"),
+    ("launch.mesh", "make_host_mesh make_production_mesh"),
 ])
 def test_launch_exports_what_the_jax_modules_export(name, exported):
     import repro_torch.launch
 
     mod = importlib.import_module(f"repro_torch.{name}")
-    assert set(mod.__all__) == set(exported.split())
+    assert set(mod.__all__) == set(exported.split()) | _PORT_ONLY.get(name, set())
     assert set(exported.split()) <= set(repro_torch.launch.__all__)
+
+
+def test_launch_binds_the_mesh_constructors_without_jax():
+    """``from repro_torch.launch import make_host_mesh, make_production_mesh``
+    (``repro.launch``'s two names) in a process where ``jax`` and ``repro``
+    cannot load; the host mesh is the JAX package's 1 x 1 (data, model)."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "from repro_torch.launch import make_host_mesh, make_production_mesh\n"
+        "from repro_torch.launch import mesh\n"
+        "m = make_host_mesh(device='cpu')\n"
+        "assert m.axis_names == ('data', 'model') and m.shape == {'data': 1, 'model': 1}\n"
+        "assert make_production_mesh is mesh.make_production_mesh\n"
+        "assert make_production_mesh(device='meta').axis_names == ('data', 'model')\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", code], env=env, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 
 def test_checkpoint_exports_all_but_the_mesh_restore():

@@ -98,6 +98,15 @@ def test_squash_matches_jax_and_keeps_zero_finite():
     assert torch.isfinite(got).all() and not got[0, 0].any()
 
 
+def test_squash_takes_the_jax_axis_keyword():
+    """``squash(x, axis=...)``, JAX's signature: capsules along axis 1."""
+    x = np.random.default_rng(3).normal(size=(3, 4, 5)).astype(np.float32)
+    got = tm.squash(torch.from_numpy(x), axis=1)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jm.squash(jnp.asarray(x), axis=1)),
+                               rtol=1e-6, atol=1e-7)
+    assert not torch.allclose(got, tm.squash(torch.from_numpy(x)))
+
+
 def test_mind_loss_and_gradients_match_jax(small):
     jcfg, tcfg, jp, _, tp = small
     jb, tb = _batch(jcfg, 32, seed=3)

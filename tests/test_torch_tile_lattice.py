@@ -381,6 +381,39 @@ def test_tune_fw_round_warms_each_blocks_product_before_the_sweep(at_cache, monk
     assert jax_order == order[:first_solve]
 
 
+@pytest.mark.parametrize("backend", ["pallas", "xla", "interpret", None])
+def test_tuners_take_and_drop_the_jax_backend(at_cache, fake_card, monkeypatch, backend):
+    """The repair: a call written for the JAX tuners' signature passes
+    ``backend=``; the port drops it whatever its value (the route follows
+    ``device``), so each tuner measures the same candidates on the card and
+    keys and returns the same entries as without it."""
+    monkeypatch.setenv("REPRO_AUTOTUNE", "force")
+    bfw = importlib.import_module("repro_torch.core.blocked_fw")
+    monkeypatch.setattr(bfw, "blocked_fw", lambda h, **kw: (h, None))
+
+    card_measure = autotune.measure         # the stubbed card's: times a candidate's knobs
+
+    def sweep(**kw):
+        del fake_card[:]
+        monkeypatch.setattr(autotune, "measure", card_measure)
+        got = [autotune.tune(64, 8192, 8192, device="cuda", **kw),
+               autotune.tune_row_close(16, 8192, device="cuda", **kw),
+               *autotune.tune_blocked_fw(8192, 256, device="cuda", **kw).values()]
+        # the round sweep times whole (stubbed) solves, a burst of one each
+        monkeypatch.setattr(autotune, "measure",
+                            lambda fn, reps, device="cpu", burst=1: (fn(), 1.0)[1])
+        got.append(autotune.tune_fw_round(1000, device="cuda", blocks=(32, 64), **kw))
+        return ([{k: v for k, v in e.items() if k != "measured_at"} for e in got],
+                list(fake_card), sorted(autotune.load_entries(reload=True)))
+
+    plain = sweep()
+    given = sweep(backend=backend)
+    assert given == plain
+    assert all(e["source"] == "measured" for e in given[0])
+    assert given[1] and all(kind in ("product", "row") for kind, _ in given[1])
+    assert all(key.startswith(("cuda|", "rowclose|cuda|", "fwround|cuda|")) for key in given[2])
+
+
 # ---------------------------------------------------------------------------
 # the dispatch seam
 # ---------------------------------------------------------------------------
