@@ -29,6 +29,10 @@ Both entry points run on the card (``device="cuda"``, the default) unless
 the caller passes another device, as the CPU tests pass ``device="cpu"``.
 On a host without CUDA a call that names no device raises: it never falls
 back to the CPU.
+
+A running ``torch.profiler`` records each call's phases as ``repro_torch.*``
+spans (``repro_torch._spans``): the call, ``validate``, ``bucket``, ``pad``,
+``dispatch`` (the solver), ``scatter`` and ``check``, once a call or a bucket.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from .._spans import span
 from .blocked_fw import blocked_fw
 from .errors import InputValidationError, NegativeCycleError
 from .floyd_warshall import fw_classic, fw_squaring
@@ -68,6 +73,11 @@ def validate_cost_matrix(h, semiring: SemiringLike = "tropical") -> None:
     matrix or a (G, n, n) stack, a tensor or a host array, and checks it
     where it lies.  Syncs the device; pass ``validate=False`` to ``solve``
     on paths that guarantee clean inputs."""
+    with span("repro_torch.validate"):
+        _reject_nan(h, semiring)
+
+
+def _reject_nan(h, semiring: SemiringLike) -> None:
     bad = torch.isnan(torch.as_tensor(h))
     count = int(bad.sum())  # repro: allow-host-sync  NaN check before dispatch (JAX: apsp.py:86)
     if count:
@@ -94,21 +104,22 @@ def check_negative_cycles(
     restricts each graph's check to its true block."""
     if semiring.name != "tropical":
         return
-    diag = torch.diagonal(dist, dim1=-2, dim2=-1)
-    neg = diag < 0
-    if sizes is not None:
-        live = torch.arange(diag.shape[-1], device=diag.device)[None, :] < torch.as_tensor(
-            np.asarray(sizes), device=diag.device)[:, None]
-        neg = neg & live
-    if bool(neg.any()):  # repro: allow-host-sync  the post-solve contract (JAX: apsp.py:118)
-        idx = tuple(int(x) for x in torch.nonzero(neg)[0])
-        worst = float(diag[neg].min())  # repro: allow-host-sync  the message, on the raise path
-        raise NegativeCycleError(
-            f"negative cycle detected: solved diagonal entry {idx} is "
-            f"{worst:g} < 0, so tropical distances are unbounded "
-            "below.  Remove the cycle or pass validate=False to skip this "
-            "check (the returned matrix would be meaningless)."
-        )
+    with span("repro_torch.check"):
+        diag = torch.diagonal(dist, dim1=-2, dim2=-1)
+        neg = diag < 0
+        if sizes is not None:
+            live = torch.arange(diag.shape[-1], device=diag.device)[None, :] < torch.as_tensor(
+                np.asarray(sizes), device=diag.device)[:, None]
+            neg = neg & live
+        if bool(neg.any()):  # repro: allow-host-sync  the post-solve contract (JAX: apsp.py:118)
+            idx = tuple(int(x) for x in torch.nonzero(neg)[0])
+            worst = float(diag[neg].min())  # repro: allow-host-sync  the message, on the raise path
+            raise NegativeCycleError(
+                f"negative cycle detected: solved diagonal entry {idx} is "
+                f"{worst:g} < 0, so tropical distances are unbounded "
+                "below.  Remove the cycle or pass validate=False to skip this "
+                "check (the returned matrix would be meaningless)."
+            )
 
 
 @dataclass
@@ -259,19 +270,21 @@ def solve(
     ``InputValidationError`` before dispatch, and (tropical only) raise
     ``NegativeCycleError`` when the solved diagonal goes negative.
     """
-    _check_method(method)
-    device = default_device(device)
-    sr = get_semiring(semiring)
-    target = torch.float32 if dtype is None else dtype
-    x = torch.as_tensor(h, dtype=target, device=device)
-    if validate:
-        validate_cost_matrix(x, sr)
-    if donate is None:
-        donate = _fresh(x, h)             # fresh copy -> safe to overwrite
-    dist, pred = METHODS[method](x, with_pred, semiring=sr, donate=donate, **kwargs)
-    if validate:
-        check_negative_cycles(dist, sr)
-    return APSPResult(dist=dist, pred=pred, method=method)
+    with span("repro_torch.solve"):
+        _check_method(method)
+        device = default_device(device)
+        sr = get_semiring(semiring)
+        target = torch.float32 if dtype is None else dtype
+        x = torch.as_tensor(h, dtype=target, device=device)
+        if validate:
+            validate_cost_matrix(x, sr)
+        if donate is None:
+            donate = _fresh(x, h)             # fresh copy -> safe to overwrite
+        with span("repro_torch.dispatch"):
+            dist, pred = METHODS[method](x, with_pred, semiring=sr, donate=donate, **kwargs)
+        if validate:
+            check_negative_cycles(dist, sr)
+        return APSPResult(dist=dist, pred=pred, method=method)
 
 
 def next_pow2(x: int, floor: int = 1) -> int:
@@ -312,37 +325,38 @@ def pad_batch(
     would be free phantom-node shortcuts).  A full-size float32 stack on
     ``device`` comes back as itself.
     """
-    sr = get_semiring(semiring)
-    device = default_device(device)
-    if _is_stack(hs):
-        g, n, _ = hs.shape
-        sizes = np.full(g, n) if sizes is None else np.asarray(sizes, np.int64)
-        if int(sizes.max(initial=0)) > n:
-            raise ValueError(f"sizes {sizes.max()} larger than stack edge {n}")
-        if bool((sizes == n).all()) and (n_max is None or n_max == n):
-            return torch.as_tensor(hs, dtype=torch.float32, device=device), sizes
-        # keep only each graph's true block; repack with inert padding below
-        mats = [hs[i][: int(k), : int(k)] for i, k in enumerate(sizes)]
-        if n_max is None:
-            n_max = n                        # preserve the stack's edge
-    else:
-        mats = list(hs)
-        if sizes is None:
-            sizes = np.array([m.shape[0] for m in mats], np.int64)
+    with span("repro_torch.pad"):
+        sr = get_semiring(semiring)
+        device = default_device(device)
+        if _is_stack(hs):
+            g, n, _ = hs.shape
+            sizes = np.full(g, n) if sizes is None else np.asarray(sizes, np.int64)
+            if int(sizes.max(initial=0)) > n:
+                raise ValueError(f"sizes {sizes.max()} larger than stack edge {n}")
+            if bool((sizes == n).all()) and (n_max is None or n_max == n):
+                return torch.as_tensor(hs, dtype=torch.float32, device=device), sizes
+            # keep only each graph's true block; repack with inert padding below
+            mats = [hs[i][: int(k), : int(k)] for i, k in enumerate(sizes)]
+            if n_max is None:
+                n_max = n                        # preserve the stack's edge
         else:
-            sizes = np.asarray(sizes, np.int64)
-    if not mats:
-        raise ValueError("empty graph batch")
-    n = int(max(m.shape[0] for m in mats)) if n_max is None else int(n_max)
-    if any(m.shape[0] > n for m in mats):
-        raise ValueError(f"n_max={n} smaller than largest graph")
-    # The fresh padded stack, one copy (JAX: np.full, apsp.py:338).
-    out = sr.eye(n, torch.float32, device).expand(len(mats), n, n).clone()  # lint: allow-copy  stack
-    for i, m in enumerate(mats):
-        k = m.shape[0]
-        if k:
-            out[i, :k, :k] = torch.as_tensor(m, dtype=torch.float32)
-    return out, sizes
+            mats = list(hs)
+            if sizes is None:
+                sizes = np.array([m.shape[0] for m in mats], np.int64)
+            else:
+                sizes = np.asarray(sizes, np.int64)
+        if not mats:
+            raise ValueError("empty graph batch")
+        n = int(max(m.shape[0] for m in mats)) if n_max is None else int(n_max)
+        if any(m.shape[0] > n for m in mats):
+            raise ValueError(f"n_max={n} smaller than largest graph")
+        # The fresh padded stack, one copy (JAX: np.full, apsp.py:338).
+        out = sr.eye(n, torch.float32, device).expand(len(mats), n, n).clone()  # lint: allow-copy  stack
+        for i, m in enumerate(mats):
+            k = m.shape[0]
+            if k:
+                out[i, :k, :k] = torch.as_tensor(m, dtype=torch.float32)
+        return out, sizes
 
 
 def _solve_stack(stack, with_pred, method, semiring=TROPICAL, donate=False, **kwargs):
@@ -372,29 +386,44 @@ def _bucket_count(c: int) -> int:
 
 
 def _solve_bucketed(
-    mats: List, sizes: np.ndarray, n: int, method: str, with_pred: bool,
+    hs, sizes: Optional[Sequence[int]], n_max: Optional[int], method: str, with_pred: bool,
     semiring=TROPICAL, donate=True, dtype=None, device=None, **kwargs
-) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+) -> Tuple[torch.Tensor, Optional[torch.Tensor], np.ndarray]:
     """Size-bucketed batched solve: graphs grouped by power-of-two padded
     edge, one batched solve a bucket, results scattered back into the
     common (G, n, n) frame, which is built on the solve's device.
     Bit-identical to the single-stack path — padding is inert either way —
     but a ragged corpus does ~size^3 work per graph instead of n_max^3.
     Per-bucket stacks are fresh, so they donate unless the caller opted
-    out; ``dtype`` casts each bucket's stack and the result frame."""
-    g = len(mats)
-    out_dtype = torch.float32 if dtype is None else dtype
-    # The result frame of the buckets (JAX: np.full, apsp.py:397).
-    dist = semiring.eye(n, out_dtype, device).expand(g, n, n).clone()  # lint: allow-copy  frame
-    pred = None
-    if with_pred:
-        idx = torch.arange(n, dtype=torch.int32, device=device)
-        pred = torch.full((g, n, n), -1, dtype=torch.int32, device=device)
-        pred[:, idx, idx] = idx
+    out; ``dtype`` casts each bucket's stack and the result frame.  Returns
+    the frame's distances and predecessors and the true sizes."""
+    with span("repro_torch.bucket"):
+        if _is_stack(hs):
+            sizes = (np.full(hs.shape[0], hs.shape[1], np.int64)
+                     if sizes is None else np.asarray(sizes, np.int64))
+            mats = [h[:k, :k] for h, k in zip(hs, sizes)]
+        else:
+            mats = list(hs)
+            sizes = (np.array([m.shape[0] for m in mats], np.int64)
+                     if sizes is None else np.asarray(sizes, np.int64))
+        if not mats:
+            raise ValueError("empty graph batch")
+        n = int(max(sizes.max(), 1)) if n_max is None else int(n_max)
+        if int(sizes.max()) > n:
+            raise ValueError(f"n_max={n} smaller than largest graph")
+        g = len(mats)
+        out_dtype = torch.float32 if dtype is None else dtype
+        # The result frame of the buckets (JAX: np.full, apsp.py:397).
+        dist = semiring.eye(n, out_dtype, device).expand(g, n, n).clone()  # lint: allow-copy  frame
+        pred = None
+        if with_pred:
+            idx = torch.arange(n, dtype=torch.int32, device=device)
+            pred = torch.full((g, n, n), -1, dtype=torch.int32, device=device)
+            pred[:, idx, idx] = idx
 
-    buckets: Dict[int, List[int]] = {}
-    for i, k in enumerate(sizes):
-        buckets.setdefault(_bucket_edge(int(k)), []).append(i)
+        buckets: Dict[int, List[int]] = {}
+        for i, k in enumerate(sizes):
+            buckets.setdefault(_bucket_edge(int(k)), []).append(i)
 
     for edge, members in sorted(buckets.items()):
         slots = _bucket_count(len(members))
@@ -404,14 +433,16 @@ def _solve_bucketed(
         if dtype is not None:
             stack = stack.to(dtype)
         # pad_batch built a fresh stack -> safe to donate per bucket
-        d, p = _solve_stack(stack, with_pred, method, semiring=semiring, donate=donate,
-                            **kwargs)
-        for j, i in enumerate(members):
-            k = int(sizes[i])
-            dist[i, :k, :k] = d[j, :k, :k]
-            if with_pred:
-                pred[i, :k, :k] = p[j, :k, :k]
-    return dist, pred
+        with span("repro_torch.dispatch"):
+            d, p = _solve_stack(stack, with_pred, method, semiring=semiring, donate=donate,
+                                **kwargs)
+        with span("repro_torch.scatter"):
+            for j, i in enumerate(members):
+                k = int(sizes[i])
+                dist[i, :k, :k] = d[j, :k, :k]
+                if with_pred:
+                    pred[i, :k, :k] = p[j, :k, :k]
+    return dist, pred, sizes
 
 
 def solve_batch(
@@ -448,43 +479,28 @@ def solve_batch(
     ``validate`` rejects NaN inputs and checks each graph's unpadded
     diagonal for negative cycles (tropical).
     """
-    _check_method(method)
-    semiring = get_semiring(semiring)
-    device = default_device(device)
-    if validate:
-        if _is_stack(hs):
-            validate_cost_matrix(hs, semiring)
-        else:
-            for m in hs:
-                validate_cost_matrix(m, semiring)
-    if bucket_by_size:
-        if _is_stack(hs):
-            sizes_ = (np.full(hs.shape[0], hs.shape[1], np.int64)
-                      if sizes is None else np.asarray(sizes, np.int64))
-            mats = [h[:k, :k] for h, k in zip(hs, sizes_)]
-        else:
-            mats = list(hs)
-            sizes_ = (np.array([m.shape[0] for m in mats], np.int64)
-                      if sizes is None else np.asarray(sizes, np.int64))
-        if not mats:
-            raise ValueError("empty graph batch")
-        n = int(max(sizes_.max(), 1)) if n_max is None else int(n_max)
-        if int(sizes_.max()) > n:
-            raise ValueError(f"n_max={n} smaller than largest graph")
-        dist, pred = _solve_bucketed(
-            mats, sizes_, n, method, with_pred, semiring=semiring,
-            donate=donate is not False, dtype=dtype, device=device, **kwargs
-        )
+    with span("repro_torch.solve_batch"):
+        _check_method(method)
+        semiring = get_semiring(semiring)
+        device = default_device(device)
         if validate:
-            check_negative_cycles(dist, semiring, sizes=sizes_)
-        return BatchAPSPResult(dist=dist, pred=pred, sizes=sizes_, method=method)
-    stack, sizes = pad_batch(hs, sizes, n_max=n_max, semiring=semiring, device=device)
-    if dtype is not None:
-        stack = stack.to(dtype)
-    if donate is None:
-        donate = _fresh(stack, hs)        # fresh packed stack -> overwrite it
-    dist, pred = _solve_stack(stack, with_pred, method, semiring=semiring, donate=donate,
-                              **kwargs)
-    if validate:
-        check_negative_cycles(dist, semiring, sizes=sizes)
-    return BatchAPSPResult(dist=dist, pred=pred, sizes=sizes, method=method)
+            with span("repro_torch.validate"):
+                for m in [hs] if _is_stack(hs) else hs:
+                    _reject_nan(m, semiring)
+        if bucket_by_size:
+            dist, pred, sizes = _solve_bucketed(
+                hs, sizes, n_max, method, with_pred, semiring=semiring,
+                donate=donate is not False, dtype=dtype, device=device, **kwargs
+            )
+        else:
+            stack, sizes = pad_batch(hs, sizes, n_max=n_max, semiring=semiring, device=device)
+            if dtype is not None:
+                stack = stack.to(dtype)
+            if donate is None:
+                donate = _fresh(stack, hs)        # fresh packed stack -> overwrite it
+            with span("repro_torch.dispatch"):
+                dist, pred = _solve_stack(stack, with_pred, method, semiring=semiring,
+                                          donate=donate, **kwargs)
+        if validate:
+            check_negative_cycles(dist, semiring, sizes=sizes)
+        return BatchAPSPResult(dist=dist, pred=pred, sizes=sizes, method=method)

@@ -275,7 +275,7 @@ def serve_apsp(
         done += batch
         print(f"[serve] batch of {batch} graphs (sizes {sizes.min()}-{sizes.max()}) "
               f"-> dist {tuple(res.dist.shape)} (reachable entries sample: {reach})")
-    dt = time.time() - t0
+    dt = max(time.time() - t0, 1e-9)   # two clock reads may be equal
     msg = f"[done] {done} graphs, {done / dt:.1f} graphs/s end-to-end"
     if t_first is not None:
         if done > batch:               # steady state needs a cycle after the first

@@ -57,6 +57,14 @@ def test_serve_apsp_tunes_the_round_of_a_blocked_server(tmp_path, capsys):
     assert "measured" in capsys.readouterr().out
 
 
+def test_serve_apsp_with_no_elapsed_time(monkeypatch, capsys):
+    """Two equal clock reads around an empty stream give a rate, not a
+    ZeroDivisionError."""
+    monkeypatch.setattr(serve.time, "time", lambda: 1000.0)
+    assert serve.serve_apsp(0, batch=4, n_max=16, method="classic", device="cpu") == 0
+    assert "[done] 0 graphs, 0.0 graphs/s end-to-end" in capsys.readouterr().out
+
+
 @pytest.mark.parametrize("semiring", ["bottleneck", "reliability", "boolean"])
 def test_serve_apsp_other_semirings(semiring):
     assert serve.serve_apsp(4, batch=4, n_max=12, method="squaring", semiring=semiring,
