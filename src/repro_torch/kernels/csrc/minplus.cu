@@ -18,9 +18,10 @@
 // exactly where the reference's is_zero mask puts it, and a strict
 // improvement over A leaves -1 where A was kept.
 //
-// Witness rule.  One thread folds each output element over k in ascending
-// order with the strict Semiring::better (fold_ring's TRACK mode), so ties
-// keep the smallest k, as jnp.argmin does.  A NaN candidate never improves
+// Witness rule.  The witnesses are those of a fold of each output element
+// over k in ascending order with the strict Semiring::better (fold_ring's
+// TRACK mode, which defers the search for them, bit for bit), so ties keep
+// the smallest k, as jnp.argmin does.  A NaN candidate never improves
 // and a NaN accumulator is never replaced (a comparison with NaN is false):
 // the port's NaN rule, which the plain version in kernels/minplus.py
 // follows too.  bf16 operands are upcast by the caller (kernels/ops.py), so
@@ -47,16 +48,30 @@
 // X may be a strided view: kmajor reads it through its row pitch, so the
 // caller makes no contiguous copy first.
 //
-// What bounds it on this card.  Each candidate costs one ⊗ and one ⊕
-// (minplus) or one ⊗, one compare and two selects (the witness modes) FP32
-// instructions on the CUDA cores: no tensor-core MMA computes a (min, +)
-// product.  At the blocked-FW shapes (K = B = 256) the operations bound is
-// far above the bytes bound.  The default value tile is fw_update's: 64 x
-// 128 outputs, 8 x 8 a thread, three CTAs of 128 threads an SM.  The
-// witness tile holds int32 indices beside the floats, so it is 8 x 4 (64 x
-// 64 outputs, 168 registers, three CTAs an SM): an 8 x 8 witness tile (128
-// accumulator registers, 255 in all, two CTAs an SM) ran slower, most of
-// all with the pred epilogue (PERF.md).
+// What bounds it on this card.  FP32 instructions on the CUDA cores: no
+// tensor-core MMA computes a (min, +) product, and at the blocked-FW shapes
+// (K = B = 256) the operations bound is far above the bytes bound.  The
+// value fold (minplus) costs one ⊗ and one ⊕ a candidate.  The witness
+// modes defer the witness (fold_ring, minplus_tile.cuh): each ring slice is
+// folded as values are, one ⊗ and one NaN-ignoring ⊕ a candidate into a
+// copy of the accumulator, and only the outputs whose slice value strictly
+// improves are resolved, each by its own lane's rescan of the slice still
+// in its ring slot (the lanes of a warp rescan side by side).  A warp keeps
+// the eager fold (one ⊗, one compare and two selects a candidate, 4.55
+// instructions) for a slice where one of its lanes had more than 16 outputs
+// move in the slice before, for a first slice whose outputs mostly start at
+// the semiring zero (every fold from the zero: the chunks of a split
+// product, row_close) and for a partial last slice.  The default value tile
+// is fw_update's: 64 x 128 outputs, 8 x 8 a thread, three CTAs of 128
+// threads an SM.  The witness tile is 8 x 4 (64 x 64 outputs, three CTAs an
+// SM): the deferred fold holds the slice value beside the accumulator, and
+// the witnesses lie in 16 KB of shared slots, touched only after a slice.
+// The deferred loop is 2.12 SASS instructions a candidate; a rescan pass
+// costs a warp about 200 scheduler cycles (PERF.md).
+//
+// A launch given a stats buffer (the wrapper passes one while a profiler
+// runs; null otherwise) adds the witness fold's counts to it (kFoldCounts,
+// minplus_tile.cuh): one atomic add a count a CTA.
 //
 // The tile lattice.  The product compiles every tile of ProductTile
 // (minplus_tile.cuh), the lattice row_close.cu compiles too: 64, 32 or 16
@@ -127,6 +142,7 @@ struct Args {
   float* pz;            // partial values (chunks, G, M, N) when chunks > 1
   int* pk;              // partial k (chunks, G, M, N), witness modes, chunks > 1
   int g, m, k, n, koff, joff, chunk, chunks;
+  unsigned long long* stats;  // the witness fold's counts, or null
 };
 
 // Output (g, r, c) from its folded value v and winner ks (-1 where nothing
@@ -175,7 +191,7 @@ __device__ __forceinline__ void product_tile(const Args& A) {
   fold_ring<SR, BM, T::BN, T::BK, T::STAGES, TN, MODE != kValue>(
       acc, idx, A.xt + g * A.k * A.mp, A.mp, A.mp,
       static_cast<const float*>(A.y.p) + g * A.y.gs, A.y.rs, A.ny, m0, n0, A.k,
-      reinterpret_cast<float*>(smem4));
+      reinterpret_cast<float*>(smem4), A.stats);
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int r = m0 + R::row(t, i);
@@ -214,7 +230,7 @@ __device__ __forceinline__ void chunk_tile(const Args& A) {
   fold_ring<SR, BM, T::BN, T::BK, T::STAGES, TN, TRACK>(
       acc, idx, A.xt + (g * A.k + k0) * A.mp, A.mp, A.mp,
       static_cast<const float*>(A.y.p) + g * A.y.gs + k0 * A.y.rs, A.y.rs, A.ny, m0, n0, kn,
-      reinterpret_cast<float*>(smem4));
+      reinterpret_cast<float*>(smem4), A.stats);
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int r = m0 + R::row(t, i);
@@ -297,10 +313,13 @@ __global__ void __launch_bounds__(256) kmajor(const View x, float* __restrict__ 
   }
 }
 
+// The dynamic shared bytes are opted into on every launch that asks for
+// any: a witness kernel's static slots (fold_ring) count against the 48 KB
+// a kernel gets without it.
 template <class Kernel>
 cudaError_t run(Kernel kernel, int threads, int smem, dim3 grid, cudaStream_t s,
                 const Args& A) {
-  if (smem > 48 * 1024) {
+  if (smem > 0) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
@@ -411,14 +430,16 @@ bool aligned16(const View& v) {
 // m * n each, when plan.chunks > 1 (then the product writes them, not z
 // and out, and minplus_combine_launch finishes).  The plan
 // (kernels/minplus.py launch_plan, passed by address) must be one that
-// plan_is accepts; any other is refused before anything launches.
-// Launches kmajor (when k > 0), then the product.  Returns a cudaError_t.
+// plan_is accepts; any other is refused before anything launches.  stats:
+// null, or kFoldCounts uint64 that a witness mode's product adds its
+// counts to.  Launches kmajor (when k > 0), then the product.  Returns a
+// cudaError_t.
 extern "C" int minplus_launch(int semiring, int mode, int acc, repro_torch::View x,
                               void* xt, repro_torch::View y, repro_torch::View a, void* z,
                               void* out, repro_torch::View px, repro_torch::View py,
                               repro_torch::View pa, void* pz, void* pk, int g, int m, int k,
                               int n, int koff, int joff, const repro_torch::ProductPlan* planp,
-                              void* stream) {
+                              void* stats, void* stream) {
   using namespace repro_torch;
   if (!planp) return cudaErrorInvalidValue;
   const ProductPlan& plan = *planp;
@@ -454,6 +475,7 @@ extern "C" int minplus_launch(int semiring, int mode, int acc, repro_torch::View
   A.joff = joff;
   A.chunk = plan.chunk;
   A.chunks = plan.chunks;
+  A.stats = static_cast<unsigned long long*>(stats);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (k > 0) {
     kmajor<<<dim3(plan.kx, plan.ky, plan.kz), dim3(32, 8), 0, s>>>(

@@ -58,9 +58,10 @@ struct RingShape {
 // with a witness).  The column tile widens as BM narrows (BM * BN = 8192
 // outputs a CTA, 4096 with a witness), so a short row list wastes no
 // thread on padded rows; the k slice is shallow enough that three ring
-// slots of BK * (BM + BN) floats leave room for three CTAs an SM.  At
-// BM = 64 these are fw_update's value tile (64 x 128, BK 32) and the
-// witness tile (64 x 64, BK 32).
+// slots of BK * (BM + BN) floats leave room for three CTAs an SM (with a
+// witness, beside fold_ring's 16 KB of witness slots, at BM = 64 and 16;
+// two at 32).  At BM = 64 these are fw_update's value tile (64 x 128, BK 32)
+// and the witness tile (64 x 64, BK 32).
 template <bool TRACK, int BM>
 struct ProductTile {
   static constexpr int TN = TRACK ? 4 : 8;
@@ -109,12 +110,69 @@ __device__ __forceinline__ void ring_copy(float* dst, const float* __restrict__ 
   }
 }
 
+// The witness fold's counts a launch, kept only where the kernel is given a
+// buffer of kFoldCounts (the wrapper passes one while a profiler runs): warp
+// slices folded, warp slices run eagerly, rescan passes (a deferred warp
+// slice makes as many as its busiest lane has moved outputs), and outputs
+// resolved.
+enum : int { kSlices, kEager, kRescans, kResolved, kFoldCounts };
+
+// A warp folds its next slice eagerly where one of its lanes had more than
+// this many outputs move in the slice before.  A rescan pass costs a warp
+// about 200 scheduler cycles, the deferred fold of a slice about 4100 and
+// the eager fold about 7600 (PERF.md, at 8192 x 256 x 8192), so deferring
+// pays up to about 16 passes.
+constexpr int kMostRescans = 16;
+
+// The witness fold's shared slots: one int a thread and output, register
+// by register, so that a warp's accesses are consecutive.
+template <int N>
+__device__ __forceinline__ int* witness_slots() {
+  __shared__ int slots[N];
+  return slots;
+}
+
+// A shared store made only where p holds, predicated rather than branched
+// around: a branch around a store in a warp's divergent lanes costs a
+// reconvergence barrier.
+__device__ __forceinline__ void store_if(bool p, int* at, int v) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(at));
+  asm volatile("{\n .reg .pred q;\n setp.ne.b32 q, %2, 0;\n @q st.shared.b32 [%0], %1;\n}"
+               ::"r"(s), "r"(v), "r"(int(p)) : "memory");
+}
+
+__device__ __forceinline__ unsigned long long* fold_tally() {
+  __shared__ unsigned long long tally[kFoldCounts];
+  return tally;
+}
+
 // acc[i][j] = acc[i][j] ⊕ (⊕_k xt[k][m0 + row(t, i)] ⊗ y[k][n0 + col(t, j)])
 // over k = 0..K.  With TRACK, the witness fold instead: in ascending k, a
 // candidate that strictly improves (Semiring::better) replaces acc[i][j]
 // and sets idx[i][j] to its k, so ties keep the smallest k and a NaN
 // candidate never improves; idx is untouched where nothing improved, and
 // padded k (>= K) is never a candidate.  Without TRACK, idx is not used.
+//
+// The witness fold takes each ring slice one of two ways, chosen a warp at a
+// time.  Eager: each candidate against the accumulator (one ⊗, one compare,
+// two selects; 4.55 instructions a candidate), the slice's winners kept
+// beside acc and written to shared slots after the slice.  Deferred: the
+// value loop (one ⊗ and one Semiring::pick a candidate, no index touched)
+// folds the slice into a copy of acc, and an output needs its witness only
+// where that slice value strictly improves on acc (better: false for NaN).
+// Those outputs take the slice value, parked in their witness slot, and
+// each lane then rescans the slice, still in its ring slot, once for each
+// of its outputs that moved (the lanes of a warp side by side): the
+// witness is the first k whose candidate, recomputed with the same ⊗,
+// equals the slice value, and where that value is ±0 the accumulator takes
+// the witness candidate's own bits.  That is the eager fold's (value, k)
+// bit for bit, ties included.  A warp folds a slice eagerly where one of
+// its lanes had more than kMostRescans outputs move in its previous slice,
+// or, for the first slice, start at the semiring zero (every output of a
+// fold from the zero: it improves nearly everywhere), and always a partial
+// last slice.  idx lives in shared slots during the fold; stats, where not
+// null, takes the counts (kFoldCounts) with one atomic add a count a CTA.
+//
 // smem holds RingShape::kSmemBytes; every thread of the CTA must call it
 // (it synchronises the CTA).
 template <int SR, int BM, int BN, int BK, int STAGES, int TN, bool TRACK>
@@ -122,7 +180,7 @@ __device__ __forceinline__ void fold_ring(float (&acc)[8][TN], int (&idx)[8][TN]
                                           const float* __restrict__ xt, long long ldx,
                                           long long nx, const float* __restrict__ y,
                                           long long ldy, long long ny, int m0, int n0, int K,
-                                          float* smem) {
+                                          float* smem, unsigned long long* stats = nullptr) {
   using S = Semiring<SR>;
   using R = RingShape<BM, BN, BK, STAGES, TN>;
   const int t = threadIdx.x;
@@ -133,6 +191,24 @@ __device__ __forceinline__ void fold_ring(float (&acc)[8][TN], int (&idx)[8][TN]
     ring_copy<SR, BM, BK, R::kThreads>(s, xt, ldx, nx, m0, k0, K);
     ring_copy<SR, BN, BK, R::kThreads>(s + BK * BM, y, ldy, ny, n0, k0, K);
   };
+  // The witness fold's state: idx's slots, the warp's way for its next
+  // slice, its counts.
+  [[maybe_unused]] int* slots = nullptr;
+  [[maybe_unused]] bool eager = false;
+  [[maybe_unused]] int counts[kFoldCounts] = {};
+  if constexpr (TRACK) {
+    static_assert(TN == 4, "the witness tile is 8 x 4 a thread");
+    slots = witness_slots<8 * TN * R::kThreads>();
+    int at_zero = 0;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        slots[(i * TN + j) * R::kThreads + t] = idx[i][j];
+        at_zero += acc[i][j] == S::zero();
+      }
+    eager = __reduce_max_sync(~0u, at_zero) > kMostRescans;
+  }
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < nk) stage(s, s * BK);
@@ -147,12 +223,14 @@ __device__ __forceinline__ void fold_ring(float (&acc)[8][TN], int (&idx)[8][TN]
     const float* sx = smem + (kt % STAGES) * R::kStageFloats;
     const float* sy = sx + BK * BM;
     const int k0 = kt * BK;
+    [[maybe_unused]] int won[8][TN];  // an eager slice's winners, k within the slice
     auto fold_step = [&](int kk) {
       const float4 a0 = *reinterpret_cast<const float4*>(&sx[kk * BM + ty]);
       const float4 a1 = *reinterpret_cast<const float4*>(&sx[kk * BM + BM / 2 + ty]);
       const float4 b0 = *reinterpret_cast<const float4*>(&sy[kk * BN + tx]);
       float4 b1 = b0;
-      if constexpr (TN == 8) b1 = *reinterpret_cast<const float4*>(&sy[kk * BN + BN / 2 + tx]);
+      if constexpr (TN == 8)
+        b1 = *reinterpret_cast<const float4*>(&sy[kk * BN + BN / 2 + tx]);
       const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
       const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
@@ -163,23 +241,126 @@ __device__ __forceinline__ void fold_ring(float (&acc)[8][TN], int (&idx)[8][TN]
             const float c = S::mul(a[i], b[j]);
             if (S::better(c, acc[i][j])) {
               acc[i][j] = c;
-              idx[i][j] = k0 + kk;
+              won[i][j] = kk;
             }
           } else {
             acc[i][j] = S::add(acc[i][j], S::mul(a[i], b[j]));
           }
         }
     };
-    if (!TRACK || k0 + BK <= K) {
+    if constexpr (TRACK) {
+      int mine = 0;  // this lane's outputs whose witness moved in this slice
+      const bool deferred = !eager && k0 + BK <= K;
+      if (!deferred) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) won[i][j] = -1;
+        if (k0 + BK <= K) {
+#pragma unroll 8
+          for (int kk = 0; kk < BK; ++kk) fold_step(kk);
+        } else {
+          // The last, partial slice: padded k is no candidate.
+          for (int kk = 0; kk < K - k0; ++kk) fold_step(kk);
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) {
+            store_if(won[i][j] >= 0, &slots[(i * TN + j) * R::kThreads + t], k0 + won[i][j]);
+            mine += won[i][j] >= 0;
+          }
+        ++counts[kEager];
+      } else {
+        float v[8][TN];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) v[i][j] = acc[i][j];
+#pragma unroll 8
+        for (int kk = 0; kk < BK; ++kk) {
+          const float4 a0 = *reinterpret_cast<const float4*>(&sx[kk * BM + ty]);
+          const float4 a1 = *reinterpret_cast<const float4*>(&sx[kk * BM + BM / 2 + ty]);
+          const float4 b0 = *reinterpret_cast<const float4*>(&sy[kk * BN + tx]);
+          const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+          const float b[4] = {b0.x, b0.y, b0.z, b0.w};
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int j = 0; j < TN; ++j) v[i][j] = S::pick(v[i][j], S::mul(a[i], b[j]));
+        }
+        // Moved outputs take the slice value and park it in their slot.
+        unsigned left = 0;
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) {
+            const bool up = S::better(v[i][j], acc[i][j]);
+            acc[i][j] = up ? v[i][j] : acc[i][j];
+            store_if(up, &slots[(i * TN + j) * R::kThreads + t], __float_as_int(v[i][j]));
+            left |= unsigned(up) << (i * TN + j);
+          }
+        mine = __popc(left);
+        counts[kResolved] += mine;
+        // Each lane rescans the slice for each of its moved outputs.
+        unsigned signed_zero = 0;
+        while (left) {
+          const int r = __ffs(left) - 1;
+          left &= left - 1;
+          const int i = r / TN, j = r % TN;
+          const int row = (i < 4 ? 0 : BM / 2) + ty + (i & 3);
+          const int col = (j < 4 ? 0 : BN / 2) + tx + (j & 3);
+          int* const at = &slots[r * R::kThreads + t];
+          const float want = __int_as_float(*at);
+          int kw = 0;
+#pragma unroll
+          for (int kk = BK - 1; kk >= 0; --kk)
+            if (S::mul(sx[kk * BM + row], sy[kk * BN + col]) == want) kw = kk;
+          *at = k0 + kw;
+          signed_zero |= unsigned(want == 0.0f) << r;
+        }
+        // A slice value of ±0: the witness candidate's own sign.
+        if (signed_zero) {
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int j = 0; j < TN; ++j)
+              if (signed_zero >> (i * TN + j) & 1) {
+                const int kk = slots[(i * TN + j) * R::kThreads + t] - k0;
+                acc[i][j] = S::mul(sx[kk * BM + R::row(t, i)], sy[kk * BN + R::col(t, j)]);
+              }
+        }
+      }
+      const int most = __reduce_max_sync(~0u, mine);
+      counts[kRescans] += deferred ? most : 0;
+      eager = most > kMostRescans;
+    } else {
       // Unrolled by 8, not by BK: fully unrolled at BK = 32 the loop spills.
 #pragma unroll 8
       for (int kk = 0; kk < BK; ++kk) fold_step(kk);
-    } else {
-      // The witness fold's last, partial slice: padded k is no candidate.
-      for (int kk = 0; kk < K - k0; ++kk) fold_step(kk);
     }
   }
   cp_async_wait<0>();
+  if constexpr (TRACK) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) idx[i][j] = slots[(i * TN + j) * R::kThreads + t];
+    if (stats) {
+      unsigned long long* tally = fold_tally();
+      if (t < kFoldCounts) tally[t] = 0;
+      counts[kSlices] = nk;
+      counts[kResolved] = __reduce_add_sync(~0u, counts[kResolved]);
+      __syncthreads();
+      if ((t & 31) == 0) {
+#pragma unroll
+        for (int c = 0; c < kFoldCounts; ++c)
+          if (counts[c]) atomicAdd(&tally[c], (unsigned long long)counts[c]);
+      }
+      __syncthreads();
+      if (t < kFoldCounts && tally[t]) atomicAdd(&stats[t], tally[t]);
+    }
+  }
 }
 
 // The value fold of fw_colpanel and fw_update: both operands read up to

@@ -15,10 +15,10 @@
 //                             pred[R[i], k*] when k* == j, else pred[k*, j];
 //                             pred[R[i], j] where nothing improved.  K* is
 //                             never stored.
-// Witness and NaN rules are minplus.cu's: one thread folds each output over
-// k in ascending order with the strict Semiring::better, so ties keep the
-// smallest k, a NaN candidate never improves and a NaN start value is never
-// replaced.  The kernel never writes D: the caller writes the panel back
+// Witness and NaN rules are minplus.cu's: the witness of a fold of each
+// output over k in ascending order with the strict Semiring::better (which
+// fold_ring defers, bit for bit), so ties keep the smallest k, a NaN
+// candidate never improves and a NaN start value is never replaced.  The kernel never writes D: the caller writes the panel back
 // after the pass, so each pass reads the state before it, as the JAX pass
 // does.  A repeated row id computes the same panel row twice.
 //
@@ -49,10 +49,12 @@
 // (it never improves on the zero) but stays a kept start value.
 //
 // What bounds it on this card.  r*n*n candidates at two FP32 instructions
-// each (four with a witness) on the CUDA cores; the bytes (D read once, the
-// panel written once) bound it only below r = 10 with a witness and r = 20
-// without.  The tiles are minplus's (8 x 8 a thread for values, 8 x 4 with
-// a witness, three CTAs an SM) at BM = 64.
+// each on the CUDA cores, with a witness two where fold_ring defers it and
+// 4.55 where a warp folds a slice eagerly (minplus.cu); every fold here
+// starts from the zero, so its first slice is eager.  The bytes (D read
+// once, the panel written once) bound it only below r = 10 with a witness
+// and r = 20 without.  The tiles are minplus's (8 x 8 a thread for values,
+// 8 x 4 with a witness, three CTAs an SM) at BM = 64.
 //
 // The wrapper (kernels/row_close.py) checks shapes and the row ids (each in
 // [0, n)), so the gather needs no bounds check, allocates the outputs and
@@ -205,10 +207,13 @@ __global__ void __launch_bounds__(256) rows_kmajor(const float* __restrict__ d,
   }
 }
 
+// The dynamic shared bytes are opted into on every launch that asks for
+// any: a witness kernel's static slots (fold_ring) count against the 48 KB
+// a kernel gets without it.
 template <class Kernel>
 cudaError_t run(Kernel kernel, int threads, int smem, dim3 grid, cudaStream_t s,
                 const Args& A) {
-  if (smem > 48 * 1024) {
+  if (smem > 0) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;

@@ -20,6 +20,10 @@
 // min ⊕, > for a max ⊕).  A comparison with NaN is false, so a NaN
 // candidate never improves and a NaN accumulator is never replaced: the
 // port's NaN rule for witnesses, with no extra instruction.
+//
+// pick(a, b) is ⊕ that ignores NaN (fminf / fmaxf: FMNMX without .NaN, one
+// instruction): the deferred witness fold's slice value, in which a NaN
+// candidate never wins, as under better.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -46,6 +50,7 @@ template <> struct Semiring<0> {  // tropical
   static __device__ __forceinline__ float add(float a, float b) { return min_nan(a, b); }
   static __device__ __forceinline__ float mul(float a, float b) { return __fadd_rn(a, b); }
   static __device__ __forceinline__ bool better(float c, float acc) { return c < acc; }
+  static __device__ __forceinline__ float pick(float a, float b) { return fminf(a, b); }
 };
 
 template <> struct Semiring<1> {  // bottleneck
@@ -53,6 +58,7 @@ template <> struct Semiring<1> {  // bottleneck
   static __device__ __forceinline__ float add(float a, float b) { return max_nan(a, b); }
   static __device__ __forceinline__ float mul(float a, float b) { return min_nan(a, b); }
   static __device__ __forceinline__ bool better(float c, float acc) { return c > acc; }
+  static __device__ __forceinline__ float pick(float a, float b) { return fmaxf(a, b); }
 };
 
 template <> struct Semiring<2> {  // reliability
@@ -60,6 +66,7 @@ template <> struct Semiring<2> {  // reliability
   static __device__ __forceinline__ float add(float a, float b) { return max_nan(a, b); }
   static __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
   static __device__ __forceinline__ bool better(float c, float acc) { return c > acc; }
+  static __device__ __forceinline__ float pick(float a, float b) { return fmaxf(a, b); }
 };
 
 template <> struct Semiring<3> {  // boolean
@@ -67,6 +74,7 @@ template <> struct Semiring<3> {  // boolean
   static __device__ __forceinline__ float add(float a, float b) { return max_nan(a, b); }
   static __device__ __forceinline__ float mul(float a, float b) { return min_nan(a, b); }
   static __device__ __forceinline__ bool better(float c, float acc) { return c > acc; }
+  static __device__ __forceinline__ float pick(float a, float b) { return fmaxf(a, b); }
 };
 
 // Storage: float32, or bf16 with float32 arithmetic.  round() is the value a

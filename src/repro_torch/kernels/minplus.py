@@ -58,7 +58,11 @@ them in ascending chunk order into Z (and K* or the preds): the unsplit
 fold's bits, ties still to the smallest k.
 
 ``launches`` counts the calls of each wrapper that launched its kernel,
-and ``minplus_combine`` each combine launched.
+and ``minplus_combine`` each combine launched.  While a profiler runs, the
+witness modes' launches also add the kernel's witness-fold counts to a
+buffer on the card (:data:`FOLD_COUNTS`; off a profiler the kernel is
+given none and counts nothing); :func:`fold_counts` reads them, with a
+synchronise, so never inside a timed window.
 Each call, launched or on ``meta``, reports its work
 (``roofline.kernels.minplus_work``) and plan to the dry run's counter, if
 one runs (``roofline.op_cost.report_kernel``).
@@ -73,6 +77,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch import _spans
 from repro_torch.core.semiring import Semiring, SemiringLike, get_semiring
 from repro_torch.roofline import op_cost
 from repro_torch.roofline.kernels import minplus_combine_work, minplus_work
@@ -99,6 +104,8 @@ __all__ = [
     "tile",
     "split_k",
     "LATTICE_ROWS",
+    "FOLD_COUNTS",
+    "fold_counts",
 ]
 
 # Elements of the (..., rows, k chunk, N) broadcast the plain version builds
@@ -117,6 +124,11 @@ MODES = ("minplus", "minplus_argmin", "minplus_pred")
 TILE_ROWS, DEPTH, STAGES, THREADS = 64, 32, 3, 128
 LATTICE_ROWS = (16, 32, 64)
 TILE_COLS = {False: 128, True: 64}
+# The witness fold's counts (csrc/minplus_tile.cuh kFoldCounts), in order:
+# warp slices folded, warp slices run eagerly, rescan passes (each deferred
+# warp slice makes as many as its busiest lane has moved outputs), outputs
+# resolved.
+FOLD_COUNTS = ("slices", "eager", "rescans", "resolved")
 # Threads a CTA of the split-k combine (csrc/minplus.cu kCombineThreads).
 COMBINE_THREADS = 256
 
@@ -439,6 +451,40 @@ def ring_rows(y: torch.Tensor) -> torch.Tensor:
     return yp[..., :n]
 
 
+# The witness-fold counts' buffer of each device, made at the first witness
+# launch under a profiler.
+_fold_buffers: dict = {}
+
+
+def _fold_buffer(device: torch.device) -> Optional[torch.Tensor]:
+    """The device's counts buffer while a profiler runs on this thread,
+    else None (the kernel is then given a null pointer)."""
+    if not _spans._on():
+        return None
+    buf = _fold_buffers.get(device)
+    if buf is None:
+        buf = _fold_buffers[device] = torch.zeros(len(FOLD_COUNTS), dtype=torch.int64,
+                                                  device=device)
+    return buf
+
+
+def fold_counts(device=None, *, reset: bool = False) -> dict:
+    """The witness fold's counts (:data:`FOLD_COUNTS`) that the witness
+    launches under a profiler have added on ``device`` (default: the
+    current CUDA device), all 0 where none ran; ``reset`` sets them back
+    to 0.  Synchronises with the card."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    buf = _fold_buffers.get(dev)
+    if buf is None:
+        return dict.fromkeys(FOLD_COUNTS, 0)
+    counts = dict(zip(FOLD_COUNTS, buf.tolist()))  # repro: allow-host-sync  the reader's one sync
+    if reset:
+        buf.zero_()
+    return counts
+
+
 def _launch(name: str, mode: int, x, y, a, semiring, px=None, py=None, pa=None,
             k_offset: int = 0, j_offset: int = 0, plan: Optional[ProductPlan] = None,
             tile_rows: Optional[int] = None, chunks: Optional[int] = None
@@ -482,12 +528,13 @@ def _launch(name: str, mode: int, x, y, a, semiring, px=None, py=None, pa=None,
                                                    ctypes.c_void_p, ctypes.c_void_p, _View,
                                                    _View, _View, ctypes.c_void_p,
                                                    ctypes.c_void_p] + [ctypes.c_int] * 6
-                             + [ctypes.POINTER(_Plan), ctypes.c_void_p])
+                             + [ctypes.POINTER(_Plan), ctypes.c_void_p, ctypes.c_void_p])
         stream = torch.cuda.current_stream(x.device).cuda_stream
+        stats = _fold_buffer(x.device) if mode else None
         err = fn(code, mode, int(a is not None), _view(x), xt.data_ptr() or None, _view(y),
                  _view(a), z.data_ptr(), None if out is None else out.data_ptr(), _view(px),
                  _view(py), _view(pa), _ptr(pz), _ptr(pk), g, m, k, n, int(k_offset),
-                 int(j_offset), ctypes.byref(plan.c_args()), stream)
+                 int(j_offset), ctypes.byref(plan.c_args()), _ptr(stats), stream)
         if err:
             raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
         _counts.bump(launches, name)

@@ -546,6 +546,138 @@ def test_minplus_pred_kernel_on_state_panels(cuda):
     assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
 
 
+# A finite start value that every candidate of _mat's operands improves on.
+WORSE = {"tropical": 1e6, "bottleneck": -1e6, "reliability": 1e-6, "boolean": 0.5}
+
+
+def _eager_fold(x, y, a, semiring):
+    """The sequential witness fold, one k at a time on the card: each
+    candidate against the accumulator with the strict better, so the bits
+    of each output are those of its first winning candidate."""
+    sr = get_semiring(semiring)
+    acc = (torch.full(x.shape[:-1] + y.shape[-1:], sr.zero, device=x.device) if a is None
+           else a.clone())
+    idx = torch.full(acc.shape, -1, dtype=torch.int32, device=x.device)
+    for kk in range(x.shape[-1]):
+        c = sr.mul(x[..., :, kk, None], y[..., None, kk, :])
+        won = sr.better(c, acc)
+        acc = torch.where(won, c, acc)
+        idx = torch.where(won, torch.full_like(idx, kk), idx)
+    return acc, idx
+
+
+def _bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _routes(semiring, route, rng):
+    """(x, y, a, product knobs) of a product that drives one way of the
+    witness fold (csrc/minplus_tile.cuh fold_ring): ``one_lane``, a start
+    value that nothing improves but at a few scattered outputs (deferred
+    slices, one lane of a warp rescanning); ``all_lanes``, a start value
+    every candidate improves on (a deferred first slice in which every lane
+    rescans for all its outputs, then eager slices); ``from_zero``, a split
+    product folded from the semiring zero (an all-improving first slice,
+    eager); ``signed_zero``, ±0 candidates below a start of 1 (tropical: the
+    witness candidate's own sign)."""
+    m, k, n = 256, 256, 320
+    x = _mat(rng, (m, k), semiring, ties=True)
+    y = _mat(rng, (k, n), semiring, ties=True)
+    if route == "one_lane":
+        a = mp.minplus_torch(x, y, semiring=semiring)
+        i = torch.from_numpy(rng.integers(0, m, 24))
+        j = torch.from_numpy(rng.integers(0, n, 24))
+        a[i, j] = WORSE[semiring]
+        return x, y, a, {}
+    if route == "all_lanes":
+        return x, y, torch.full((m, n), WORSE[semiring]), {}
+    if route == "from_zero":
+        return x, y, None, {"chunks": 4}
+    x = torch.from_numpy(rng.choice([0.0, -0.0, 1.0], size=(m, k)).astype(np.float32))
+    y = torch.from_numpy(rng.choice([0.0, -0.0, 2.0], size=(k, n)).astype(np.float32))
+    return x, y, torch.ones(m, n), {}
+
+
+ROUTES = [(sr, route) for sr in SEMIRINGS for route in ("one_lane", "all_lanes", "from_zero")
+          ] + [("tropical", "signed_zero")]
+# The fold's way each route must take at least once (mp.FOLD_COUNTS).
+ROUTE_COUNT = {"one_lane": "rescans", "all_lanes": "eager", "from_zero": "eager",
+               "signed_zero": "resolved"}
+
+
+@pytest.mark.parametrize("semiring,route", ROUTES)
+def test_witness_fold_routes_match_the_eager_fold(cuda, semiring, route):
+    """The deferred witness fold's rescans and its eager slices give the
+    sequential fold's (Z, K*) bit for bit, and the preds through
+    pred_from_kstar; the fold's counts (read under a profiler) show the
+    way taken."""
+    rng = np.random.default_rng(len(route) + 7 * SEMIRINGS.index(semiring))
+    x, y, a, knobs = _routes(semiring, route, rng)
+    x, y = x.to(cuda), y.to(cuda)
+    a = None if a is None else a.to(cuda)
+    px = torch.randint(-1, 5000, x.shape, dtype=torch.int32, device=cuda)
+    py = torch.randint(-1, 5000, y.shape, dtype=torch.int32, device=cuda)
+    pa = None if a is None else torch.randint(-1, 5000, a.shape, dtype=torch.int32, device=cuda)
+    mp.fold_counts(cuda, reset=True)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        z, ks = mp.minplus_argmin_cuda(x, y, a, semiring=semiring, **knobs)
+        zp, p = mp.minplus_pred_cuda(x, y, px, py, a, pa, k_offset=3, j_offset=0,
+                                     semiring=semiring, **knobs)
+    counts = mp.fold_counts(cuda, reset=True)
+    wz, wk = _eager_fold(x, y, a, semiring)
+    assert _bits(z, wz) and torch.equal(ks, wk) and _bits(zp, wz)
+    assert torch.equal(p, mp.pred_from_kstar(wk, px, py, k_offset=3, fallback=pa))
+    assert counts[ROUTE_COUNT[route]] > 0, counts
+    if route == "one_lane":
+        assert counts["eager"] == 0 and 0 < counts["resolved"] <= 2 * 24 * 8, counts
+    if route == "all_lanes":
+        assert counts["rescans"] > 0 and counts["resolved"] >= 2 * x.shape[0] * y.shape[1], counts
+
+
+def test_witness_fold_counter_is_kept_only_under_a_profiler(cuda):
+    """Under a profiler the counts' slices equal the product's output tiles
+    x warps x slices (a split plan: x chunks, each chunk's slices), and
+    every slice is eager or deferred; off the profiler the kernel gets a
+    null pointer and nothing is counted."""
+    rng = np.random.default_rng(3)
+    m, k, n = 200, 250, 300
+    x, y = _mat(rng, (m, k), "tropical").to(cuda), _mat(rng, (k, n), "tropical").to(cuda)
+    a = _mat(rng, (m, n), "tropical", density=0.3).to(cuda)
+    mp.fold_counts(cuda, reset=True)
+    assert mp._fold_buffer(cuda) is None
+    mp.minplus_argmin_cuda(x, y, a)
+    assert set(mp.fold_counts(cuda).values()) == {0}
+    for knobs in ({}, {"chunks": 3, "tile_rows": 32}):
+        plan = mp.launch_plan(1, m, k, n, "minplus_argmin", **knobs)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            want = mp.minplus_argmin_cuda(x, y, a, **knobs)
+        counts = mp.fold_counts(cuda, reset=True)
+        tiles = plan.grid[0] * plan.grid[1]
+        slices = sum(-(-len(plan.k_of(c, k)) // plan.depth) for c in range(plan.chunks))
+        assert counts["slices"] == tiles * (plan.threads // 32) * slices, (counts, plan)
+        assert counts["eager"] <= counts["slices"]
+        got = mp.minplus_argmin_cuda(x, y, a, **knobs)
+        assert set(mp.fold_counts(cuda).values()) == {0}
+        assert _bits(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("semiring", SEMIRINGS)
+def test_row_close_pred_pass_matches_the_eager_fold(cuda, semiring):
+    """A row_close pred pass (the pred engine's, folded from the zero with
+    D's rows folded in last) against its plain version, values bit for
+    bit, at an unsplit and a split plan."""
+    rng = np.random.default_rng(29)
+    for n, r in ((300, 64), (1030, 40)):
+        d = _mat(rng, (n, n), semiring, ties=True, density=0.3)
+        d.fill_diagonal_(get_semiring(semiring).one)
+        d = d.to(cuda)
+        rows = torch.from_numpy(rng.integers(0, n, r).astype(np.int32)).to(cuda)
+        pred = init_pred(d, semiring)
+        got = rc.row_close_pred_cuda(d, rows, pred, semiring=semiring)
+        want = rc.row_close_pred_torch(d, rows, pred, semiring=semiring)
+        assert _bits(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 @pytest.mark.parametrize("kind", ["minplus", "minplus_argmin"])
 @pytest.mark.parametrize("m,k,n", [(7, 19, 100), (19, 7, 257), (100, 257, 7), (257, 100, 19),
                                    (257, 257, 257), (7, 1, 7)])

@@ -13,6 +13,8 @@ disagree with each other, and the port keeps its own rule (tested against
 a per-candidate loop below).
 """
 
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,6 +26,7 @@ from repro.kernels import ref as jax_ref
 from repro.kernels.minplus import minplus_argmin_pallas, minplus_pallas
 from repro.kernels.minplus_xla import minplus_argmin_xla, minplus_xla
 from repro_torch.core.convert import to_numpy, to_torch
+from repro_torch.core.semiring import get_semiring
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.minplus import minplus_argmin_torch, minplus_torch
 
@@ -226,3 +229,104 @@ def test_ops_minplus_follows_the_device_and_rejects_bf16_outside_tropical():
         ops.minplus(x.bfloat16(), x, semiring="boolean")
     with pytest.raises(ValueError, match="bf16"):
         ops.minplus_argmin(x, x, x.bfloat16(), semiring="bottleneck")
+
+
+def _deferred_fold(x, y, a, semiring, bk):
+    """A plain model of the CUDA witness fold's deferred slices
+    (``fold_ring``, ``csrc/minplus_tile.cuh``): each slice of ``bk`` k is
+    folded into a copy of the accumulator with a ⊕ that ignores NaN (as
+    ``fminf`` / ``fmaxf``; between equal values, ±0, it keeps the later, so
+    the slice value's own bits are never the answer); an output takes a
+    witness from the slice only where that slice value strictly improves on
+    the accumulator (``better``, false for NaN), and then it is the first k
+    of the slice whose candidate equals the slice value, whose bits the
+    accumulator takes."""
+    sr = get_semiring(semiring)
+
+    def pick(v, c):
+        return torch.where(torch.isnan(c) | sr.better(v, c), v, c)
+
+    m, k = x.shape
+    acc = (torch.full((m, y.shape[1]), sr.zero) if a is None else a).clone()
+    idx = torch.full(acc.shape, -1, dtype=torch.int32)
+    for k0 in range(0, k, bk):
+        cand = sr.mul(x[:, k0:k0 + bk, None], y[None, k0:k0 + bk, :])
+        v = acc.clone()
+        for q in range(cand.shape[1]):
+            v = pick(v, cand[:, q])
+        moved = sr.better(v, acc)
+        first = (cand == v[:, None, :]).int().argmax(dim=1)
+        won = torch.gather(cand, 1, first[:, None, :])[:, 0]
+        acc = torch.where(moved, won, acc)
+        idx = torch.where(moved, (first + k0).to(torch.int32), idx)
+    return acc, idx
+
+
+def _deferred_case(case, semiring, bk):
+    """(x, y, a, bk) of one case of the rule's test."""
+    rng = np.random.default_rng(31 + bk)
+    k = 70
+    x, y, a = operands(41, semiring, 0, 12, k, 9, ties=case in ("ties", "tie_across_slices"))
+    if case == "tie_across_slices":
+        # slice 1 repeats slice 0's candidates exactly: it only ties
+        x[:, bk:2 * bk], y[bk:2 * bk] = x[:, :bk], y[:bk]
+    elif case == "signed_zero":
+        x = rng.choice([0.0, -0.0, 1.0], size=x.shape).astype(np.float32)
+        y = rng.choice([0.0, -0.0, 2.0], size=y.shape).astype(np.float32)
+        a = np.full(a.shape, 1.0 if semiring == "tropical" else -1.0, np.float32)
+    elif case == "nan":
+        x[rng.uniform(size=x.shape) < 0.1] = np.nan
+        y[3, :] = np.nan
+        a[rng.uniform(size=a.shape) < 0.2] = np.nan
+    elif case == "from_zero":
+        a = None
+    elif case == "nothing_improves":
+        a = plain(x, y, a, semiring, False)
+    elif case == "ragged_k":
+        x, y = x[:, :37], y[:37]
+    return x, y, a
+
+
+DEFERRED_CASES = [(case, bk) for case in ("ties", "tie_across_slices", "signed_zero", "nan",
+                                          "from_zero", "nothing_improves", "ragged_k")
+                  for bk in (32,)] + [("ragged_k", 16), ("ties", 16)]
+
+
+@pytest.mark.parametrize("semiring", SEMIRINGS)
+@pytest.mark.parametrize("case,bk", DEFERRED_CASES)
+def test_deferred_witness_fold_is_the_eager_fold(semiring, case, bk):
+    """The CUDA kernel's deferred witness rule gives the eager fold's (Z, K*)
+    bit for bit: against the per-candidate loop (the kernel's eager fold:
+    the bits of ±0 and of each tie's first candidate) and against
+    ``minplus_argmin_torch`` (values and witnesses), under ties inside and
+    across slices, ±0 candidates, NaN candidates and accumulators, a K that
+    is not a multiple of the slice, a fold from the zero, and a start value
+    that nothing improves."""
+    x, y, a = _deferred_case(case, semiring, bk)
+    z, ks = _deferred_fold(t(x), t(y), None if a is None else t(a), semiring, bk)
+    z, ks = z.numpy(), ks.numpy()
+    wz, wk = _loop_argmin(x, y, a, semiring)
+    assert np.array_equal(z.view(np.int32), wz.view(np.int32)) and np.array_equal(ks, wk)
+    pz, pk = plain(x, y, a, semiring, True)
+    assert np.array_equal(z, pz, equal_nan=True) and np.array_equal(ks, pk)
+    if case == "nothing_improves":
+        assert (ks == -1).all()
+    if case == "tie_across_slices":
+        assert not ((ks >= bk) & (ks < 2 * bk)).any()
+
+
+def test_witness_fold_counts_are_kept_only_under_a_profiler():
+    """Off a profiler the witness launches hand the kernel no counts buffer
+    (a null pointer: nothing is counted); under one, one buffer of
+    FOLD_COUNTS a device, made once; the reader gives zeros for a device
+    where none was made."""
+    mpm = importlib.import_module("repro_torch.kernels.minplus")
+    dev = torch.device("cpu")
+    assert mpm._fold_buffer(dev) is None
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        buf = mpm._fold_buffer(dev)
+        assert buf is not None and mpm._fold_buffer(dev) is buf
+    assert buf.shape == (len(mpm.FOLD_COUNTS),) and buf.dtype == torch.int64
+    assert mpm._fold_buffer(dev) is None
+    mpm._fold_buffers.pop(dev)
+    assert mpm.fold_counts("cpu") == dict.fromkeys(mpm.FOLD_COUNTS, 0)
