@@ -1,7 +1,8 @@
 """The inputs of every cell, made from ``--seed`` alone.
 
-Frozen: a later change adds a configuration or a traffic mix as data and
-never edits these recipes, so every cell keeps its inputs.
+Frozen: a later change adds a configuration or a traffic mix as data, or
+a traffic kind as a new file (``kinds/``), and never edits these recipes,
+so every cell keeps its inputs.
 
 * :func:`paper_graph`: the paper's generator ``G = f(V, rho, alpha)``
   (§3.4): edge probability ``rho / 100 * U[0, 1)``, integer costs uniform in

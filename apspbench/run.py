@@ -3,18 +3,23 @@
     python3 -m apspbench.run --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 from the root of a checkout.  The program under test is ``repro_torch``
-(``src/repro_torch``), driven through ``solve`` and ``solve_batch``;
-nothing here imports JAX or the JAX package.
+(``src/repro_torch``), driven through ``solve``, ``solve_batch`` and
+``DynamicAPSP``; nothing here imports JAX or the JAX package.
 
 Set-up (``setup_s``) runs from the start of this process to the first
 timed step: the imports, the kernels' build where they are not built yet,
 the inputs made on the card from the seed, and a warm-up of every shape the
-window will use.  The window is a closed loop that runs whole steps until
-``--seconds`` have passed; each step ends in a device synchronise.  After
-it, the peak memory is read, the program's state is dropped, and the steps'
-answers are judged against the plain reference (``reference/``).  With
-``--trace 1`` the first steps run under ``torch.profiler`` and the result
-carries the per-layer metrics, ``busy_s`` / ``window_s`` and a breakdown.
+window will use; seconds that a loop spent in the plain reference to draw
+its inputs (``reference_s``) are left out of it.  The window is a closed
+loop that runs whole steps until ``--seconds`` have passed, and whole
+cycles where the loop has them (``cycle_steps``); each step ends in a
+device synchronise.  The traffic file's ``kind`` names the loop,
+``kinds/<kind>.py``.  After the
+window, the peak memory is read, the program's state is dropped, and the
+steps' answers are judged against the plain reference (``reference/``).
+With ``--trace 1`` the first steps run under ``torch.profiler`` and the
+result carries the per-layer metrics, ``busy_s`` / ``window_s`` and a
+breakdown.
 
 The last line of standard output is the result, one JSON object; the last
 lines of standard error are the numbers compared, each beside its limit.
@@ -80,12 +85,13 @@ def card_line() -> str:
 
 
 def measure(loop, seconds: float, trace_plan: Optional[dict], device) -> dict:
-    """The window: whole steps until ``seconds`` have passed."""
+    """The window: whole steps until ``seconds`` have passed, ending on a
+    whole cycle of the loop's ``cycle_steps``."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from . import trace
-    from .loops import sync
+    from .kinds import sync
 
     prof, traced = None, None
     if trace_plan is not None:
@@ -95,6 +101,7 @@ def measure(loop, seconds: float, trace_plan: Optional[dict], device) -> dict:
         prof = profile(activities=acts)
         lead, last = int(trace_plan["lead"]), int(trace_plan["lead"]) + int(trace_plan["steps"])
         prof.start()
+    cycle = getattr(loop, "cycle_steps", 1)
     step_ms = []
     before = launch_counts()
     t0 = time.perf_counter()
@@ -110,7 +117,7 @@ def measure(loop, seconds: float, trace_plan: Optional[dict], device) -> dict:
         if prof is not None and i >= last:
             prof.stop()
             traced, prof = trace.capture(prof, lead), None
-        if e - t0 >= seconds:
+        if e - t0 >= seconds and i % cycle == 0:
             break
     window = e - t0
     if prof is not None:
@@ -127,21 +134,23 @@ def run_cell(program, bench: dict, workload: str, cfg: dict, traffic: dict, seed
     (the printed line) and the record the metric readers read."""
     import torch
 
-    from . import peaks, trace
-    from .loops import KINDS, sync
+    from . import kinds, peaks, trace
 
-    loop = KINDS[traffic["kind"]](program, cfg, traffic, seed, device)
+    loop = kinds.load(traffic["kind"])(program, cfg, traffic, seed, device)
     loop.warm()
-    sync(device)
-    setup_s = time.perf_counter() - t_start
+    kinds.sync(device)
+    reference_s = getattr(loop, "reference_s", 0.0)
+    setup_s = time.perf_counter() - t_start - reference_s
     rec = measure(loop, seconds, traffic["trace"] if trace_on else None, device)
     cuda = torch.device(device).type == "cuda"
     dev_info = {"platform": "gpu" if cuda else torch.device(device).type,
                 "kind": torch.cuda.get_device_name(0) if cuda else "cpu",
                 "count": 1,
                 "memory_peak_bytes": torch.cuda.max_memory_allocated(0) if cuda else 0}
-    rec.update(setup_s=setup_s, items_per_step=loop.items_per_step,
+    rec.update(setup_s=setup_s, reference_s=reference_s, items_per_step=loop.items_per_step,
                work_per_step=loop.work_per_step, peak_candidates_per_s=peaks.CANDIDATES_PER_S)
+    if hasattr(loop, "counters"):
+        rec["counters"].update(loop.counters())
     checks = loop.judge()
     correct = rec["steps"] > 0 and all(c["value"] <= c["limit"] for c in checks.values())
     metrics = {}
@@ -214,7 +223,9 @@ def report(result: dict, rec: dict, args, card: str) -> int:
         with open(args.record, "w") as f:
             json.dump(rec, f)
     print(f"apspbench: {args.workload} seed {args.seed} on {card}: {rec['steps']} steps in "
-          f"{rec['window_s']:.3f} s, set-up {rec['setup_s']:.3f} s", file=sys.stderr)
+          f"{rec['window_s']:.3f} s, set-up {rec['setup_s']:.3f} s (and "
+          f"{rec['reference_s']:.3f} s of the reference's in it, left out)", file=sys.stderr)
+    print(f"apspbench: counters {json.dumps(rec['counters'])}", file=sys.stderr)
     for name, c in result["checks"].items():
         print(f"check {name} {c['value']} <= {c['limit']}", file=sys.stderr)
     print(json.dumps(result))

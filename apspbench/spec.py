@@ -1,10 +1,11 @@
 """``BENCHMARK.json`` and the files it names, found by name.
 
 A cell (``workloads[]``) names a configuration, whose ``file`` holds its
-sizes, and a traffic mix, ``traffic/<traffic>.json``.  Every metric is a
-reader, ``metrics/<name>.py``, with ``read(record) -> float | None``.  A
-later change adds a cell, a configuration, a mix or a metric as new files
-and new entries, and edits none of these.
+sizes, and a traffic mix, ``traffic/<traffic>.json``, whose ``kind`` is a
+loop, ``kinds/<kind>.py``.  Every metric is a reader,
+``metrics/<name>.py``, with ``read(record) -> float | None``.  A later
+change adds a cell, a configuration, a mix, a traffic kind or a metric as
+new files and new entries, and edits none of these.
 """
 
 from __future__ import annotations

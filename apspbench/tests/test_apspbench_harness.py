@@ -7,7 +7,8 @@ can have:
   input);
 * an answer altered where it is produced (one distance off by one, one
   predecessor moved);
-* half of the batch left out (the corpus solved for its first half only).
+* half of the batch left out (the corpus solved for its first half only);
+* an update whose worsening phase leaves the engine's state as it was.
 
 The cells run on one chip, so no exchange between chips can be left out.
 The command line's own refusals (no card, a missing program, JAX loaded
@@ -32,13 +33,17 @@ from repro_torch.core.apsp import APSPResult, BatchAPSPResult  # noqa: E402
 
 SMALL = {"gen32k": {"V": 64, "rho": 8.0},
          "paper-corpus": {"n_graphs": 10, "v_min": 4, "v_max": 24}}
+# the updates cell's table wants strata from no affected source to most of
+# them: out-degree 4.9 as at V = 32768, on enough nodes
+SMALL_CELL = {"gen32k.updates": {"V": 256, "rho": 200 * 4.9 / 256}}
 SEED = 2 ** 31 + 99
 
 
 def cell_run(workload, program, seconds=0.3, trace=False):
     bench = spec.load()
     wl = spec.cell(bench, workload)
-    cfg = dict(spec.config(bench, wl["config"]), **SMALL[wl["config"]])
+    cfg = {**spec.config(bench, wl["config"]), **SMALL[wl["config"]],
+           **SMALL_CELL.get(workload, {})}
     traffic = spec.traffic(wl["traffic"])
     return run.run_cell(program, bench, workload, cfg, traffic, SEED, seconds, trace, "cpu",
                         time.perf_counter())
@@ -50,6 +55,7 @@ class Program:
     def __init__(self, **over):
         self.solve = over.get("solve", repro_torch.solve)
         self.solve_batch = over.get("solve_batch", repro_torch.solve_batch)
+        self.DynamicAPSP = over.get("DynamicAPSP", repro_torch.DynamicAPSP)
 
 
 def returns_input(h, with_pred=False, **kw):
@@ -85,6 +91,23 @@ def corpus_one_off(hs, sizes, **kw):
     return r
 
 
+class StaleEngine(repro_torch.DynamicAPSP):
+    """Raises the edges in ``h`` and leaves ``dist`` and ``pred`` as they
+    were: a worsening phase that returns its state unchanged."""
+
+    def _apply_worsening(self, uw, vw, oldw, info):
+        return info
+
+
+class OneOffEngine(repro_torch.DynamicAPSP):
+    """Every update's answer one distance off."""
+
+    def update(self, u, v=None, w=None):
+        info = super().update(u, v, w)
+        self.dist[1, 2] += 1.0
+        return info
+
+
 CELLS = [w["name"] for w in spec.load()["workloads"]]
 
 
@@ -111,6 +134,8 @@ FAULTS = [
     ("gen32k.pred", "answer altered", dict(solve=one_pred_moved)),
     ("corpus.blocked", "half the batch left out", dict(solve_batch=first_half_only)),
     ("corpus.blocked", "answer altered", dict(solve_batch=corpus_one_off)),
+    ("gen32k.updates", "state unchanged", dict(DynamicAPSP=StaleEngine)),
+    ("gen32k.updates", "answer altered", dict(DynamicAPSP=OneOffEngine)),
 ]
 
 

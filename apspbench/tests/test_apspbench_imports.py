@@ -58,7 +58,7 @@ def test_a_run_process_loads_no_jax():
     """What a run imports before it needs the card: the harness, torch and
     the program.  The run's own check reads ``sys.modules`` after its
     window; this holds the imports to the same rule on the CPU."""
-    code = ("import sys; sys.path.insert(0, 'src'); import apspbench.run, apspbench.loops, "
+    code = ("import sys; sys.path.insert(0, 'src'); import apspbench.run, apspbench.kinds, "
             "apspbench.trace, apspbench.reference, repro_torch, repro_torch.kernels; "
             "from apspbench import run; print(run.forbidden_loaded())")
     out = subprocess.run([sys.executable, "-c", code], cwd=spec.ROOT, capture_output=True,

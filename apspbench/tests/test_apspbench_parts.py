@@ -1,12 +1,14 @@
 """The benchmark's frozen parts on the CPU: the generator's recipe, the
-plain reference against a brute-force closure, the peak and the work
-count, every metric reader on recorded traces, and ``BENCHMARK.json``
-against the files it names.
+inputs of the ``solve`` and ``corpus`` kinds fingerprinted, the plain
+reference against a brute-force closure, the peak and the work count,
+every metric reader on recorded traces, and ``BENCHMARK.json`` against the
+files it names.
 
     python -m pytest -q apspbench/tests
 """
 
 import gzip
+import hashlib
 import json
 import math
 import re
@@ -15,7 +17,8 @@ import numpy as np
 import pytest
 import torch
 
-from apspbench import graphs, loops, peaks, reference, spec, trace
+from apspbench import graphs, kinds, peaks, reference, spec, trace
+from apspbench.tests.test_apspbench_spans import SPAN_READERS
 
 FIXTURES = spec.HERE / "tests" / "fixtures"
 INF = float("inf")
@@ -82,6 +85,54 @@ def test_corpus_recipe():
         block = h[:k, :k][~eye[:k, :k]]
         fin = block[torch.isfinite(block)]
         assert torch.all(fin == fin.floor()) and (fin.numel() == 0 or fin.max() <= 100)
+
+
+def digest(*arrays) -> str:
+    """sha256 of the arrays' dtypes, shapes and bytes."""
+    m = hashlib.sha256()
+    for a in arrays:
+        a = a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+        m.update(str(a.dtype).encode())
+        m.update(str(a.shape).encode())
+        m.update(np.ascontiguousarray(a).tobytes())
+    return m.hexdigest()
+
+
+# (graph or corpus, sources and picks) of each kind's inputs at a small size,
+# as the traffic kinds made them before they were files of their own
+FINGERPRINTS = {
+    (2 ** 31 + 99, "solve"): ("d60824f3ac9381975b3230ed7598fb09a309037d5d29b79407e9595d821167fe",
+                              "e4b39dc661466cc6eedff5a33be1479a6e8dea216362eef0501d0d418ca48032"),
+    (2 ** 31 + 99, "pred"): ("d60824f3ac9381975b3230ed7598fb09a309037d5d29b79407e9595d821167fe",
+                             "e4b39dc661466cc6eedff5a33be1479a6e8dea216362eef0501d0d418ca48032"),
+    (2 ** 31 + 99, "blocked"): ("9e099fe6c43979acc0a86af69f21cb08a47297244c229aeba1fa54f46cb72862",
+                                "5c6c79c0f89b6092176272d873a8e2bd7c4cc8fca1d9bf725df38a8752ee3438"),
+    (7, "solve"): ("655e93faaf57699fc605aa495b9630462c3fbdbd3673ce5272ab483d22815c7e",
+                   "4277adaea4eafb736bc034bf43345d55ba7c5917a0f4ddf08e0da357664a9dff"),
+    (7, "pred"): ("655e93faaf57699fc605aa495b9630462c3fbdbd3673ce5272ab483d22815c7e",
+                  "4277adaea4eafb736bc034bf43345d55ba7c5917a0f4ddf08e0da357664a9dff"),
+    (7, "blocked"): ("894b37d292ba0939c1a663cd53a6e356f03590d4aab4abe75671fdf7fc212816",
+                     "bc06f58d1ec22657d7bc2c6ea307ed336afb02288fdb3d17766af94b2b2c34cb"),
+}
+
+
+@pytest.mark.parametrize("seed,mix", sorted(FINGERPRINTS), ids=lambda x: str(x))
+def test_kind_inputs_are_unchanged(seed, mix):
+    """The ``solve`` and ``corpus`` kinds make bit for bit the inputs, check
+    sources and picks they made as classes of one module: a cell keeps its
+    inputs for a given seed when its kind moves."""
+    bench = spec.load()
+    traffic = spec.traffic(mix)
+    loop_cls = kinds.load(traffic["kind"])
+    if traffic["kind"] == "solve":
+        cfg = dict(spec.config(bench, "gen32k"), V=96, rho=6.0)
+        loop = loop_cls(None, cfg, traffic, seed, "cpu")
+        got = (digest(loop.h), digest(loop.sources, loop.picks))
+    else:
+        cfg = dict(spec.config(bench, "paper-corpus"), n_graphs=12, v_min=4, v_max=24)
+        loop = loop_cls(None, cfg, traffic, seed, "cpu")
+        got = (digest(loop.stack, loop.sizes), digest(loop.pool_g, loop.pool_s, loop.picks))
+    assert got == FINGERPRINTS[(seed, mix)]
 
 
 # -- the plain reference -----------------------------------------------------
@@ -185,8 +236,25 @@ def test_readers_on_a_known_record():
     assert r["kernels_roofline.solve"] == pytest.approx(
         100 * 2 * 10 ** 12 / (peaks.CANDIDATES_PER_S * 25e-9))
     assert r["frontend.torch_ms.corpus"] == pytest.approx(20e-6 / 2)
+    assert spec.reader("passes.updates")(rec) is None        # no engine counts recorded
+    assert spec.reader("warm_resolve_ms.updates")(rec) is None
+    rec["counters"].update({"engine.row_iters": 7, "engine.warm_iters": 3,
+                            "engine.rank_k_passes": 6, "path.row_resolve+rank_k": 3,
+                            "path.warm_resolve+rank_k": 1, "path_ms.row_resolve+rank_k": 300.0,
+                            "path_ms.warm_resolve+rank_k": 900.0, "affected_rows.sum": 400})
+    u = {name: spec.reader(name)(rec) for name in
+         ["update_ms", "launches.updates", "passes.updates", "h2d_ms.updates",
+          "device.idle.updates", "row_resolve_ms.updates", "warm_resolve_ms.updates"]}
+    assert u["update_ms"] == 500.0
+    assert u["launches.updates"] == 3.0        # the loop's own counts are no launches
+    assert u["passes.updates"] == 4.0
+    assert u["row_resolve_ms.updates"] == 100.0
+    assert u["warm_resolve_ms.updates"] == 900.0
+    assert u["h2d_ms.updates"] == pytest.approx(10e-6 / 2)
+    assert u["device.idle.updates"] == pytest.approx(50.0)
     rec["trace"] = None
-    for name in ["device.idle.corpus", "kernels_roofline.corpus", "frontend.torch_ms.corpus"]:
+    for name in ["device.idle.corpus", "kernels_roofline.corpus", "frontend.torch_ms.corpus",
+                 "h2d_ms.updates", "device.idle.updates"]:
         assert spec.reader(name)(rec) is None
     rec["counters"] = {"fw_round": 0}
     assert spec.reader("launches.corpus")(rec) is None
@@ -197,7 +265,8 @@ def fixture(cell: str) -> dict:
         return json.load(f)
 
 
-@pytest.mark.parametrize("cell", ["gen32k.solve", "corpus.blocked", "gen32k.pred"])
+@pytest.mark.parametrize("cell", ["gen32k.solve", "corpus.blocked", "gen32k.pred",
+                                  "gen32k.updates"])
 def test_readers_on_recorded_traces(cell):
     """Records of traced runs on an H100 (80GB HBM3, 700 W), made with
     ``python3 -m apspbench.run ... --trace 1 --record <file>``: every
@@ -207,6 +276,9 @@ def test_readers_on_recorded_traces(cell):
     bench = spec.load()
     names = [m["name"] for m in spec.metrics(bench, cell, per_layer=True)]
     assert names and sorted(names) == sorted(printed["metrics"])
+    if cell != "gen32k.updates":
+        # the engine has no program span yet; the other cells read theirs
+        assert set(SPAN_READERS) & set(names)
     for name in names:
         assert spec.reader(name)(rec) == printed["metrics"][name]["value"], name
     assert trace.busy_s(rec["trace"]) == printed["device"]["busy_s"]
@@ -254,7 +326,8 @@ def test_benchmark_resolves_to_files():
         assert set(w) == {"name", "config", "traffic", "chips", "why"} and NAME.match(w["name"])
         assert w["config"] in cfgs and w["chips"] == 1 and len(w["why"]) <= 200
         t = spec.traffic(w["traffic"])
-        assert t["kind"] in loops.KINDS
+        assert (spec.HERE / "kinds" / f"{t['kind']}.py").is_file()
+        assert callable(kinds.load(t["kind"]))
         ends = [m for m in spec.metrics(bench, w["name"], per_layer=False)]
         assert any(m["name"] == "setup_s" for m in ends) and len(ends) >= 2
         assert spec.metrics(bench, w["name"], per_layer=True)

@@ -24,9 +24,9 @@ import repro_torch  # noqa: E402
 SPAN_READERS = ["frontend.idle_ms.corpus", "frontend.ops.corpus", "rounds.idle_ms.corpus",
                 "rounds.idle_ms.solve"]
 # Traced runs recorded on an H100 (80GB HBM3, 700 W) with the program's
-# spans, beside the spanless records in ``fixtures/``:
+# spans, the records that ``test_apspbench_parts.py`` reads too:
 #     python3 -m apspbench.run --workload <cell> --seed <n> --seconds 51 --trace 1 --record <file>
-FIXTURES = spec.HERE / "tests" / "fixtures" / "spans"
+FIXTURES = spec.HERE / "tests" / "fixtures"
 
 
 def split_of(tr):
@@ -152,17 +152,3 @@ def test_identity_on_recorded_traces(cell):
     assert split_of(tr) is not None
     assert_identity(tr, 1e-6)
 
-
-@pytest.mark.parametrize("cell", ["gen32k.solve", "corpus.blocked", "gen32k.pred"])
-def test_every_reader_on_recorded_spanned_traces(cell):
-    """Every per-layer reader of the cell, the span readers among them,
-    gives back what the traced run printed."""
-    fx = spanned_fixture(cell)
-    rec, printed = fx["record"], fx["printed"]
-    bench = spec.load()
-    names = [m["name"] for m in spec.metrics(bench, cell, per_layer=True)]
-    assert sorted(names) == sorted(printed["metrics"])
-    assert set(SPAN_READERS) & set(names)
-    for name in names:
-        assert spec.reader(name)(rec) == printed["metrics"][name]["value"], name
-    assert trace.breakdown(rec["trace"]) == printed["breakdown"]
